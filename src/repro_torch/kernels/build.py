@@ -1,0 +1,146 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface and loaded with ``ctypes``;
+pointers and the stream travel as ``c_void_p``. A library is built at
+first use into ``kernels/build/`` (listed in ``.gitignore``) under a name
+that hashes its sources and flags, so an edited source is rebuilt and an
+unchanged one is reused. :func:`build_all` starts one ``nvcc`` per source
+at once and waits for all of them.
+
+Nothing here runs at import time: the CPU tests import every module, and
+a machine without ``nvcc`` only fails when a kernel is launched.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+__all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC_DIR"]
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the repro_torch kernels")
+
+
+class CudaKernel:
+    """One hand-written kernel: where its source is, which TPU kernel it
+    replaces, its exported C functions, and how often it was launched.
+
+    ``launches`` is a plain integer that :meth:`launch` raises by one for
+    every kernel launch; a run resets it to 0 and reads it afterwards to
+    show that its path went through the kernel.
+    """
+
+    def __init__(self, name: str, source: str,
+                 functions: Dict[str, Sequence], replaces: str):
+        self.name = name
+        self.source = source
+        self.functions = dict(functions)
+        self.replaces = replaces
+        self.launches = 0
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    # -- building ----------------------------------------------------------
+    @property
+    def source_path(self) -> Path:
+        return CSRC_DIR / self.source
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256()
+        for part in (self.source_path, CSRC_DIR / "common.cuh"):
+            digest.update(part.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source_path.stem}-{digest.hexdigest()[:16]}.so"
+
+    def _start_build(self) -> Optional[Tuple[subprocess.Popen, Path, Path]]:
+        """Start ``nvcc`` unless the library is already built; returns the
+        process, the temporary output and the final library path."""
+        out = self.library_path()
+        if out.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source_path)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, out
+
+    def _finish_build(self, build: Tuple[subprocess.Popen, Path, Path]) -> None:
+        """Wait for ``nvcc``; move the library into place or raise with
+        the compiler's output."""
+        proc, tmp, out = build
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for kernel {self.name!r} "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+
+    def _load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                build = self._start_build()
+                if build is not None:
+                    self._finish_build(build)
+                lib = ctypes.CDLL(str(self.library_path()))
+                for fn_name, argtypes in self.functions.items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                lib.repro_error_string.argtypes = [ctypes.c_int]
+                lib.repro_error_string.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+    # -- launching ---------------------------------------------------------
+    def launch(self, fn_name: str, *args) -> None:
+        """Call one exported launch function; raise if CUDA refused it."""
+        lib = self._load()
+        err = getattr(lib, fn_name)(*args)
+        if err != 0:
+            msg = lib.repro_error_string(err).decode()
+            raise RuntimeError(f"kernel {self.name!r} ({fn_name}) failed to "
+                               f"launch: CUDA error {err}: {msg}")
+        with self._lock:
+            self.launches += 1
+
+
+def build_all(kernels: Iterable[CudaKernel]) -> float:
+    """Build every kernel's library with one ``nvcc`` per source, all
+    started together; returns the wall seconds it took. Raises on the
+    first failed build after every started build has ended."""
+    t0 = time.perf_counter()
+    started = [(k, k._start_build()) for k in kernels]
+    errors = []
+    for k, build in started:
+        if build is None:
+            continue
+        try:
+            k._finish_build(build)
+        except RuntimeError as exc:
+            errors.append(exc)
+    if errors:
+        raise errors[0]
+    for k, _ in started:
+        k._load()
+    return time.perf_counter() - t0

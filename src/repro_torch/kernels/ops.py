@@ -1,0 +1,126 @@
+"""Public operators of the kernel layer.
+
+Each operator runs on the device of the tensors it is given. For a CPU
+tensor the kernel wrappers (:mod:`.matmul`, :mod:`.radix_sort`,
+:mod:`.stream_compact`, :mod:`.wah`) take their plain versions; for a
+CUDA tensor they launch the hand-written kernels or raise, with no other
+path. ``impl="ref"`` is the explicit choice of the whole plain version
+(:mod:`.ref`), which the tests and ``chip_smoke.py`` compare against.
+
+These operators also hold the global halves that the JAX package left to
+XLA around its Pallas kernels (``repro/kernels/ops.py:92-103`` and
+``:122-134``): the compaction gather over the per-block outputs, and the
+radix offsets and scatter of each digit pass. They stay plain PyTorch
+operators on the card, as they were plain XLA there.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import ref
+from .matmul import matmul as _matmul_kernel
+from .radix_sort import radix_pass
+from .ref import _take, u32_to_i64
+from .stream_compact import local_compact
+from .wah import wah_interleave as _wah_interleave_kernel
+
+__all__ = ["matmul", "stream_compact", "compact_gather", "radix_sort",
+           "wah_interleave"]
+
+_IMPLS = ("auto", "ref")
+
+
+def _plain(impl: str) -> bool:
+    if impl not in _IMPLS:
+        raise ValueError(f"impl={impl!r}; expected one of {_IMPLS}")
+    return impl == "ref"
+
+
+# ----------------------------------------------------------------------------
+def matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto"
+           ) -> torch.Tensor:
+    """``a @ b`` accumulated in f32, cast to ``a``'s dtype."""
+    if _plain(impl):
+        return ref.matmul(a, b)
+    return _matmul_kernel(a, b)
+
+
+# ----------------------------------------------------------------------------
+def compact_gather(blocks: torch.Tensor, counts: torch.Tensor, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Billeter's phase 3 as one gather: output ``i`` comes from block
+    ``searchsorted(offsets, i)`` at local index ``i - offsets[block]``.
+    Returns the prefix-valid uint32 array of length ``n`` and the 0-d
+    int32 survivor count."""
+    nb, bs = blocks.shape
+    counts = counts.reshape(-1).to(torch.int64)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    total = offsets[-1]
+    i = torch.arange(n, device=blocks.device)
+    blk = (torch.searchsorted(offsets, i, right=True) - 1).clamp(0, nb - 1)
+    local = (i - offsets[blk]).clamp(0, bs - 1)
+    vals = blocks.view(torch.int32)[blk, local]
+    out = torch.where(i < total, vals, 0)
+    return out.view(torch.uint32), total.to(torch.int32)
+
+
+def stream_compact(x: torch.Tensor, *, bs: int = 256, drop_value: int = 0,
+                   impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compacted array (prefix-valid layout, ``x``'s dtype) + surviving
+    count."""
+    if _plain(impl):
+        return ref.stream_compact(x, drop_value)
+    blocks, counts = local_compact(x.view(torch.uint32), bs=bs,
+                                   drop_value=drop_value)
+    out, total = compact_gather(blocks, counts, x.shape[0])
+    return out.view(x.dtype), total
+
+
+# ----------------------------------------------------------------------------
+def radix_sort(keys: torch.Tensor, values: Optional[torch.Tensor] = None, *,
+               bits_per_pass: int = 8, bs: int = 256, impl: str = "auto"):
+    """Stable LSD radix sort of uint32 keys (+ optional payload).
+
+    Digits wider than 8 bits take the plain sort, as in the JAX package
+    (``repro/kernels/ops.py:113``).
+    """
+    if _plain(impl) or bits_per_pass > 8:
+        return ref.radix_sort_u32(keys, values, bits_per_pass=bits_per_pass)
+    if 32 % bits_per_pass:
+        raise ValueError(f"bits_per_pass={bits_per_pass} must divide 32")
+    n = keys.shape[0]
+    nbins = 1 << bits_per_pass
+    k = keys
+    idx = torch.arange(n, device=keys.device)
+    blk = idx // bs
+    for p in range(32 // bits_per_pass):
+        shift = p * bits_per_pass
+        hist, rank = radix_pass(k, bs=bs, bits=bits_per_pass, shift=shift)
+        nb = hist.shape[0]
+        # one exclusive scan over the digit-major histogram gives, for each
+        # (digit, block), the digit's global base plus that digit's count
+        # in every earlier block (a scan along the long block axis of the
+        # [nb, nbins] table would run one serial thread per bin)
+        flat = hist.t().reshape(-1).to(torch.int64)
+        offsets = torch.cumsum(flat, 0) - flat
+        digit = (u32_to_i64(k) >> shift) & (nbins - 1)
+        dest = offsets[digit * nb + blk] + rank.reshape(-1)[:n]
+        k_next = torch.empty_like(k)
+        k_next.view(torch.int32)[dest] = k.view(torch.int32)
+        idx_next = torch.empty_like(idx)
+        idx_next[dest] = idx
+        k, idx = k_next, idx_next
+    if values is None:
+        return k
+    return k, _take(values, idx)
+
+
+# ----------------------------------------------------------------------------
+def wah_interleave(fills: torch.Tensor, literals: torch.Tensor, *,
+                   impl: str = "auto") -> torch.Tensor:
+    """``out[2i] = fills[i]; out[2i+1] = literals[i]``."""
+    if _plain(impl):
+        return ref.wah_interleave(fills, literals)
+    return _wah_interleave_kernel(fills, literals)

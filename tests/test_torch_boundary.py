@@ -1,0 +1,86 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+it never binds the CPU unless asked to."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                          capture_output=True, text=True, env=env,
+                          timeout=120)
+
+
+def test_port_imports_no_jax_and_no_repro():
+    proc = _run("""
+        import sys
+        import repro_torch, repro_torch.core, repro_torch.indexing
+        import repro_torch.kernels, repro_torch.convert, repro_torch.analysis
+        bad = sorted(m for m in sys.modules
+                     if m.startswith("jax") or m == "repro"
+                     or m.startswith("repro."))
+        print("BAD", bad)
+        print("TRITON", "triton" in sys.modules)
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+    assert "TRITON False" in proc.stdout, proc.stdout
+
+
+def test_without_a_card_nothing_binds_the_cpu_unasked():
+    proc = _run("""
+        import numpy as np
+        import torch
+        torch.cuda.is_available = lambda: False
+        from repro_torch.core import ActorSystem, DeviceRef, In, Out, kernel
+        from repro_torch.core.memref import default_device
+        from repro_torch.convert import from_jax_arrays
+
+        def raises(fn):
+            try:
+                fn()
+            except LookupError:
+                return True
+            return False
+
+        system = ActorSystem(max_workers=1)
+        mngr = system.opencl_manager()
+        double = kernel(In(torch.float32), Out(torch.float32))(lambda x: 2 * x)
+        print("find_device", raises(mngr.find_device))
+        print("default_device", raises(default_device))
+        print("spawn", raises(lambda: system.spawn(double)))
+        print("put", raises(lambda: DeviceRef.put(np.ones(3))))
+        print("convert", raises(lambda: from_jax_arrays(np.ones(3))))
+        print("devices", mngr.devices())
+        cpu = mngr.find_device(platform="cpu")
+        print("cpu", cpu.name, cpu.torch_device)
+        w = system.spawn(double, device="cpu")
+        print("asked", w.ask(np.ones(2, np.float32)).tolist())
+        system.shutdown()
+        with ActorSystem(max_workers=1, device="cpu") as cpu_system:
+            print("system", cpu_system.opencl_manager().find_device().name)
+    """)
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout
+    for name in ("find_device", "default_device", "spawn", "put", "convert"):
+        assert f"{name} True" in out, out
+    assert "devices []" in out
+    assert "cpu cpu:0 cpu" in out
+    assert "asked [2.0, 2.0]" in out
+    assert "system cpu:0" in out
+
+
+def test_find_device_raises_lookup_error_here():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from repro_torch.core import ActorSystem
+    with ActorSystem(max_workers=1) as system:
+        with pytest.raises(LookupError):
+            system.opencl_manager().find_device()
