@@ -14,7 +14,18 @@ port's main path through the entry points a user calls:
   ``np.flatnonzero`` and held against the sequential numpy builder at
   2**17;
 * the Listing 5 ``wah_index_pipeline_actors`` at k = 2**23, staged and
-  fused.
+  fused;
+* the paper's §5.4 fractional offload of a 1920x1080 Mandelbrot frame
+  (``repro_torch.examples.mandelbrot_offload``): a CPU worker and a card
+  worker under ``split_offload`` at device shares 100/90/50 %, then
+  ``ActorPool.map`` over 16 row chunks, every frame bit-exact against the
+  all-card frame;
+* ``Graph.map_over`` of a one-input matmul kernel over an 8192x4096 f32
+  ``DeviceRef``, 4 chunks on 2 replicas, with no host transfer;
+* the qwen3-1.7b prefill forward at full width (28 layers, random bf16
+  weights from a seed, 2 x 2048 tokens) with the flash-attention kernel,
+  against the same forward with the plain attention, and an f32 forward
+  at 512 tokens.
 
 Each main-path phase sets every kernel's launch count to 0 before it and
 reads the counts after it; a kernel of the phase that was not launched
@@ -39,9 +50,13 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import torch  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FLOP/s
-#: outside the tensor cores
+#: outside the tensor cores, bf16 FLOP/s in the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+#: the f32 peak counts an FMA as two operations; a kernel that issues no
+#: FMA (B2) gets one operation per FMA slot
+F32_NON_FMA_OPS = F32_FLOPS / 2
 
 MM_N = 4096
 QUICKSTART_N = 512
@@ -49,6 +64,41 @@ WAH_N = 1 << 24
 WAH_CARD = 64
 WAH_CHECK_N = 1 << 17
 PIPE_K = 1 << 23
+#: benchmarks/bench_offload.py's view, at a 1080p frame
+MANDEL_W, MANDEL_H, MANDEL_IT = 1920, 1080, 500
+MANDEL_VIEW = dict(re_min=-0.5, re_max=0.1, im_min=-0.7375, im_max=-0.1375)
+#: f32 operations per Mandelbrot iteration: 4 products, 4 sums, 1 compare
+MANDEL_OPS = 9
+#: the offload phase caps iterations at 100 (bench_offload.py's cap): the
+#: CPU worker's half frame then takes seconds, not tens of seconds
+OFFLOAD_IT = 100
+OFFLOAD_SHARES = (1.0, 0.9, 0.5)
+OFFLOAD_CHUNKS = 16
+#: the qwen3-1.7b layer's attention at 4096 tokens
+FA_B, FA_H, FA_HKV, FA_S, FA_D = 1, 16, 8, 4096, 128
+#: B6 against its plain version. f32: both are IEEE f32 and differ in
+#: summation order (tests/test_kernels.py's 2e-4). bf16 at the layer shape:
+#: the H100 read a max_abs_err of 0.00195 (one bf16 step at |x| in
+#: [0.25, 0.5)) against a plain output of RMS 0.068; the limit is four
+#: times that reading, 12 % of the RMS, a quarter of the 3e-2 the
+#: small-shape tests allow
+FA_F32_TOL = 2e-4
+FA_BF16_ATOL = 8e-3
+MAP_ROWS, MAP_K = 8192, 4096
+MAP_CHUNKS, MAP_REPLICAS = 4, 2
+PREFILL_B, PREFILL_S, PREFILL_F32_S = 2, 2048, 512
+#: kernel vs plain attention through 28 bf16 layers: the plain path rounds
+#: the probabilities to bf16 before P.V and the kernel does not, so the
+#: residual streams drift apart by bf16 rounding compounded over the
+#: layers. Limits at about twice what the H100 read: last-position
+#: max_abs_err 0.078 of max |logit| 4.375 (0.018), RMS of the difference
+#: over all positions 0.019 of the logits' RMS, top-1 agreement 0.957
+PREFILL_BF16_TOL = 0.04
+PREFILL_BF16_RMS_TOL = 0.04
+PREFILL_TOP1 = 0.9
+#: in f32 both paths are IEEE f32 and differ only in summation order: the
+#: logits are held to 1e-3 of the largest |logit|
+PREFILL_F32_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -79,6 +129,10 @@ def bytes_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def ops_ms(ops: float, peak: float) -> float:
+    return ops / peak * 1e3
+
+
 def words_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bit-exact equality of two 32-bit word tensors (any 32-bit dtype)."""
     return a.shape == b.shape and torch.equal(a.view(torch.int32),
@@ -91,20 +145,88 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max().item()) if a.numel() else 0.0
 
 
+# -- the main path's phases, shared with tools/profile_main_path.py -------------
+def spawn_m_mult(system, n: int, rng):
+    """The ``m_mult`` kernel actor (paper Listings 1+2) at n x n, and two
+    f32 host matrices for it."""
+    from repro_torch.core import In, NDRange, Out, dim_vec, kernel
+    from repro_torch.kernels import ops
+    m_mult = kernel(In(torch.float32), In(torch.float32),
+                    Out(torch.float32, shape=(n, n)),
+                    nd_range=NDRange(dim_vec(n, n)),
+                    name="m_mult")(lambda x, y: ops.matmul(x, y))
+    return (system.spawn(m_mult), rng.random((n, n), np.float32),
+            rng.random((n, n), np.float32))
+
+
+def wah_values(rng) -> np.ndarray:
+    """``build_wah_index``'s input: WAH_N values of cardinality WAH_CARD."""
+    return rng.integers(0, WAH_CARD, WAH_N).astype(np.uint32)
+
+
+def pipeline_inputs(rng):
+    """Listing 5's fill and literal words, PIPE_K of each."""
+    fills = (rng.integers(0, 2, PIPE_K) *
+             ((1 << 31) | rng.integers(1, 99, PIPE_K))).astype(np.uint32)
+    return fills, rng.integers(1, 2 ** 31, PIPE_K).astype(np.uint32)
+
+
+def offload_frame():
+    """The offload phase's 1080p frame at OFFLOAD_IT iterations."""
+    from repro_torch.examples.mandelbrot_offload import Frame
+    return Frame(width=MANDEL_W, height=MANDEL_H, max_iter=OFFLOAD_IT,
+                 **MANDEL_VIEW)
+
+
+def map_over_graph(system, rng, dev):
+    """``Graph.map_over`` of a one-input matmul kernel, its MAP_ROWS x MAP_K
+    ``DeviceRef`` input and the weight: ``(graph, x_ref, w)``."""
+    from repro_torch.core import DeviceRef, Graph, In, Out, kernel
+    from repro_torch.kernels import ops
+    w = torch.from_numpy(rng.random((MAP_K, MAP_K), np.float32)).to(dev)
+    mm = kernel(In(torch.float32), Out(torch.float32), name="mm_w")(
+        lambda x: ops.matmul(x, w))
+    g = Graph(system, name="map_over_mm")
+    g.output(g.map_over(mm, g.source("x", torch.float32), chunks=MAP_CHUNKS,
+                        replicas=MAP_REPLICAS))
+    x_ref = DeviceRef.put(rng.random((MAP_ROWS, MAP_K), np.float32),
+                          device=dev)
+    return g.build(), x_ref, w
+
+
+def prefill_model(rng, dev):
+    """qwen3-1.7b at full width with the flash-attention kernel, random
+    weights from seed 0, and PREFILL_B x PREFILL_S tokens:
+    ``(cfg, model, params, tokens)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("qwen3-1.7b")
+    model = Model(cfg, attn_impl="kernel", device=dev)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to(dev)
+    return cfg, model, model.init(0), tokens
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
 
-    from repro_torch.core import ActorSystem, In, NDRange, Out, dim_vec, kernel
+    import dataclasses
+
+    from repro_torch.core import ActorSystem
     from repro_torch.core.memref import registry
+    from repro_torch.examples.mandelbrot_offload import run as run_offload
     from repro_torch.indexing import (build_wah_index, build_wah_index_numpy,
                                       decode_wah_bitmap,
                                       wah_index_pipeline_actors)
-    from repro_torch.kernels import (KERNELS, LOCAL_COMPACT, MATMUL,
-                                     RADIX_PASS, WAH_INTERLEAVE, build_all,
-                                     ops, ref)
+    from repro_torch.kernels import (FLASH_ATTENTION, KERNELS, LOCAL_COMPACT,
+                                     MANDELBROT, MATMUL, RADIX_PASS,
+                                     WAH_INTERLEAVE, build_all, ops, ref)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mandelbrot import mandelbrot as mandelbrot_kernel
     from repro_torch.kernels.matmul import matmul as matmul_kernel
+    from repro_torch.models import Model
     from repro_torch.kernels.radix_sort import radix_pass
     from repro_torch.kernels.stream_compact import local_compact
     from repro_torch.kernels.wah import wah_interleave
@@ -226,6 +348,83 @@ def main() -> int:
     del words, out_i, out_p, lits, rand_keys, keys, pos
     torch.cuda.empty_cache()
 
+    view = ref.mandelbrot_view(MANDEL_W, MANDEL_H, **MANDEL_VIEW)
+    frame_kw = dict(width=MANDEL_W, max_iter=MANDEL_IT, view=view, device=dev)
+    counts = mandelbrot_kernel(height=MANDEL_H, **frame_kw)
+    counts_p = ops.mandelbrot(height=MANDEL_H, width=MANDEL_W,
+                              max_iter=MANDEL_IT, device=dev, impl="ref",
+                              **MANDEL_VIEW)
+    check(torch.equal(counts, counts_p),
+          "mandelbrot kernel differs from the plain version at 1920x1080")
+    half = MANDEL_H // 2
+    halves = torch.cat([mandelbrot_kernel(height=half, row_offset=0,
+                                          **frame_kw),
+                        mandelbrot_kernel(height=MANDEL_H - half,
+                                          row_offset=half, **frame_kw)])
+    check(torch.equal(halves, counts_p),
+          "mandelbrot top and bottom halves do not stack to the frame")
+    # the work this frame needs: every pixel's alive iterations plus the
+    # final escape test of the pixels that escape
+    iters = int(counts.sum()) + int((counts < MANDEL_IT).sum())
+    rows["mandelbrot"] = dict(
+        kernel=MANDELBROT, max_abs_err=max_abs_err(counts, counts_p),
+        ms=cuda_ms(lambda: mandelbrot_kernel(height=MANDEL_H, **frame_kw), 20),
+        plain_ms=cuda_ms(lambda: ops.mandelbrot(
+            height=MANDEL_H, width=MANDEL_W, max_iter=MANDEL_IT, device=dev,
+            impl="ref", **MANDEL_VIEW), 2, warmup=1),
+        bound_ms=max(bytes_ms(MANDEL_W * MANDEL_H * 4),
+                     ops_ms(MANDEL_OPS * iters, F32_NON_FMA_OPS)),
+        bound_by="operations", library_ms=None,
+        library="none: no one PyTorch call computes escape counts")
+    log(f"mandelbrot {MANDEL_W}x{MANDEL_H} max_iter {MANDEL_IT}: bit-exact, "
+        f"halves stack; {iters} iterations ({iters / counts.numel():.1f} a "
+        "pixel)")
+    del counts, counts_p, halves
+
+    fa_rng = torch.Generator(device=dev).manual_seed(0)
+
+    def qkv(b, h, hkv, sq, skv, d, dtype):
+        return (torch.randn(b, h, sq, d, generator=fa_rng, device=dev).to(dtype),
+                torch.randn(b, hkv, skv, d, generator=fa_rng, device=dev).to(dtype),
+                torch.randn(b, hkv, skv, d, generator=fa_rng, device=dev).to(dtype))
+
+    fa_err = {}
+    for tag, shape, dtype, window, rtol, atol in (
+            (f"bf16 causal S={FA_S}", (FA_B, FA_H, FA_HKV, FA_S, FA_S, FA_D),
+             torch.bfloat16, None, 0.0, FA_BF16_ATOL),
+            (f"f32 causal S={FA_S}", (FA_B, FA_H, FA_HKV, FA_S, FA_S, FA_D),
+             torch.float32, None, FA_F32_TOL, FA_F32_TOL),
+            ("f32 window 256 S=1024", (FA_B, FA_H, FA_HKV, 1024, 1024, FA_D),
+             torch.float32, 256, FA_F32_TOL, FA_F32_TOL)):
+        q, k, v = qkv(*shape, dtype)
+        got = flash_attention(q, k, v, causal=True, window=window).float()
+        want = ref.flash_attention(q, k, v, causal=True, window=window).float()
+        fa_err[tag] = max_abs_err(got, want)
+        rms = float(want.square().mean().sqrt())
+        check(torch.allclose(got, want, rtol=rtol, atol=atol),
+              f"flash_attention {tag} disagrees with the plain version "
+              f"beyond rtol {rtol}, atol {atol}")
+        log(f"flash_attention {tag}: max_abs_err {fa_err[tag]} (rtol {rtol}, "
+            f"atol {atol}); RMS of the plain output {rms}, max |plain| "
+            f"{float(want.abs().max())}")
+        del got, want
+    q, k, v = qkv(FA_B, FA_H, FA_HKV, FA_S, FA_S, FA_D, torch.bfloat16)
+    fa_ops = 4.0 * FA_B * FA_H * FA_S * FA_S * FA_D / 2       # causal
+    fa_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    rows["flash_attention"] = dict(
+        kernel=FLASH_ATTENTION, max_abs_err=fa_err[f"bf16 causal S={FA_S}"],
+        ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 10),
+        plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True),
+                         3),
+        bound_ms=max(bytes_ms(fa_bytes), ops_ms(fa_ops, BF16_FLOPS)),
+        bound_by="operations",
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10),
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True), bf16")
+    del q, k, v
+    torch.cuda.empty_cache()
+
     # -- main path --------------------------------------------------------------
     launches = {k.name: 0 for k in KERNELS}
 
@@ -249,13 +448,7 @@ def main() -> int:
         check(system.opencl_manager().find_device().torch_device == dev,
               "the default device is not cuda:0")
         for n in (QUICKSTART_N, MM_N):
-            m_mult = kernel(In(torch.float32), In(torch.float32),
-                            Out(torch.float32, shape=(n, n)),
-                            nd_range=NDRange(dim_vec(n, n)),
-                            name="m_mult")(lambda x, y: ops.matmul(x, y))
-            worker = system.spawn(m_mult)
-            m1 = rng.random((n, n), np.float32)
-            m2 = rng.random((n, n), np.float32)
+            worker, m1, m2 = spawn_m_mult(system, n, rng)
             worker.ask(m1, m2)      # first call: build and warm up
             result = run_phase(f"m_mult {n}x{n}", ["matmul"],
                                lambda: worker.ask(m1, m2))
@@ -266,7 +459,7 @@ def main() -> int:
             np.testing.assert_allclose(result, want, rtol=2e-5, atol=2e-5)
             log(f"m_mult {n}x{n} ok: |result|_F = {np.linalg.norm(result):.1f}")
 
-        values_np = rng.integers(0, WAH_CARD, WAH_N).astype(np.uint32)
+        values_np = wah_values(rng)
         values = torch.from_numpy(values_np).to(dev)
         build_wah_index(values, WAH_CARD)       # warm up
         idx = run_phase("build_wah_index n=2^24",
@@ -298,9 +491,7 @@ def main() -> int:
         del idx, idx_ref, values
         torch.cuda.empty_cache()
 
-        fills = (rng.integers(0, 2, PIPE_K) *
-                 ((1 << 31) | rng.integers(1, 99, PIPE_K))).astype(np.uint32)
-        lits_np = rng.integers(1, 2 ** 31, PIPE_K).astype(np.uint32)
+        fills, lits_np = pipeline_inputs(rng)
         f_t, l_t = torch.from_numpy(fills).to(dev), torch.from_numpy(lits_np).to(dev)
         plain_out, plain_n = ref.stream_compact(ref.wah_interleave(f_t, l_t))
         plain_out = plain_out.cpu().numpy()
@@ -324,6 +515,92 @@ def main() -> int:
             log(f"wah pipeline {mode}: {int(total)} words, equal to the plain "
                 "compaction, no read-back between stages")
         np.testing.assert_array_equal(outs["staged"], outs["fused"])
+        del outs, plain_out, f_t, l_t
+        torch.cuda.empty_cache()
+
+        frame = offload_frame()
+        offload = run_phase(
+            f"mandelbrot offload {MANDEL_W}x{MANDEL_H} max_iter {OFFLOAD_IT}",
+            ["mandelbrot"],
+            lambda: run_offload(system, frame, shares=OFFLOAD_SHARES,
+                                chunks=OFFLOAD_CHUNKS))
+        log("mandelbrot offload: every frame equals the all-card frame; "
+            "wall s " + ", ".join(f"{k} {v:.3f}"
+                                  for k, v in offload["walls"].items()))
+
+        mapped, x_ref, w_map = map_over_graph(system, rng, dev)
+        mapped.ask(x_ref)                     # warm up
+        before = registry.stats()
+        out = run_phase(f"map_over matmul {MAP_ROWS}x{MAP_K}", ["matmul"],
+                        lambda: mapped.ask(x_ref))
+        check(registry.stats()["transfers"] == before["transfers"],
+              "map_over moved a chunk through the host")
+        want = ops.matmul(x_ref.array, w_map).cpu().numpy()
+        np.testing.assert_allclose(out, want, rtol=2e-5, atol=2e-5)
+        log(f"map_over: equal to one ops.matmul within 2e-5 (max_abs_err "
+            f"{float(np.abs(out - want).max())}), no host transfer")
+        x_ref.release()
+        del out, want, w_map
+        torch.cuda.empty_cache()
+
+    cfg, model, params, tokens = prefill_model(rng, dev)
+    model.forward(params, {"tokens": tokens})          # warm up
+    logits, _ = run_phase(
+        f"qwen3-1.7b prefill {PREFILL_B}x{PREFILL_S} bf16", ["flash_attention"],
+        lambda: model.forward(params, {"tokens": tokens}))
+    check(FLASH_ATTENTION.launches == cfg.n_layers,
+          f"prefill launched flash_attention {FLASH_ATTENTION.launches} "
+          f"times, not once per layer ({cfg.n_layers})")
+    forward_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t0) * 1e3)
+    forward_ms.sort()
+    plain, _ = Model(cfg, attn_impl="ref", device=dev).forward(
+        params, {"tokens": tokens})
+    check(logits.shape == (PREFILL_B, PREFILL_S, cfg.vocab_size) and
+          bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    last_err = max_abs_err(logits[:, -1].float(), plain[:, -1].float())
+    top1_last = float((logits[:, -1].argmax(-1) ==
+                       plain[:, -1].argmax(-1)).float().mean())
+    top1_all = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    scale = float(plain[:, -1].float().abs().max())
+    # RMS of the difference over all positions, relative to the logits' RMS
+    rms_rel = float((logits.float() - plain.float()).square().mean().sqrt() /
+                    plain.float().square().mean().sqrt())
+    log(f"qwen3-1.7b prefill bf16: warm forward median of 5 "
+        f"{forward_ms[2]:.3f} ms (min {forward_ms[0]:.3f}, max "
+        f"{forward_ms[-1]:.3f}); "
+        f"last-position logits max_abs_err {last_err} (max |logit| "
+        f"{scale}, ratio {last_err / scale}), relative RMS error over all "
+        f"positions {rms_rel}, top-1 agreement last position {top1_last}, "
+        f"all positions {top1_all}")
+    check(top1_all >= PREFILL_TOP1, f"bf16 prefill: top-1 agreement "
+          f"{top1_all} < {PREFILL_TOP1}")
+    check(last_err <= PREFILL_BF16_TOL * scale, f"bf16 prefill: last-position "
+          f"error {last_err} > {PREFILL_BF16_TOL} x {scale}")
+    check(rms_rel <= PREFILL_BF16_RMS_TOL, f"bf16 prefill: relative RMS "
+          f"error {rms_rel} > {PREFILL_BF16_RMS_TOL}")
+    del logits, plain, params, model
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Model(cfg32, attn_impl="kernel", device=dev)
+    params32 = model32.init(0)
+    tokens32 = tokens[:1, :PREFILL_F32_S]
+    got32, _ = model32.forward(params32, {"tokens": tokens32})
+    want32, _ = Model(cfg32, attn_impl="ref", device=dev).forward(
+        params32, {"tokens": tokens32})
+    err32 = max_abs_err(got32, want32)
+    scale32 = float(want32.abs().max())
+    log(f"qwen3-1.7b prefill f32 1x{PREFILL_F32_S}: logits max_abs_err "
+        f"{err32} (max |logit| {scale32}, tol {PREFILL_F32_TOL} x max)")
+    check(err32 <= PREFILL_F32_TOL * scale32,
+          "f32 prefill: kernel and plain attention disagree beyond "
+          f"{PREFILL_F32_TOL} x max |logit|")
+    del got32, want32, params32, model32
 
     entries = []
     for kname, row in rows.items():

@@ -1,18 +1,21 @@
 """Carry data from the JAX package (or any host arrays) into the port.
 
-The slices so far hold no model parameters: their state is the data —
-values, fills, literals and matrices — made from a seed with numpy and
-handed to both packages. :func:`from_jax_arrays` turns such a tree into
-tensors on one device with every dtype kept, uint32 and bfloat16
-included, so both packages compute from identical inputs.
+Data — values, fills, literals and matrices — is made from a seed with
+numpy and handed to both packages: :func:`from_jax_arrays` turns such a
+tree into tensors on one device with every dtype kept, uint32 and
+bfloat16 included, so both packages compute from identical inputs.
+:func:`params_from_jax` does the same for a model's parameters, so both
+packages run one set of random weights.
 """
 from __future__ import annotations
 
 import torch.utils._pytree as pytree
 
 from .core.memref import as_device_array
+from .models.layers import ParamTree
+from .models.transformer import layer_groups
 
-__all__ = ["from_jax_arrays"]
+__all__ = ["from_jax_arrays", "params_from_jax"]
 
 
 def from_jax_arrays(tree, device=None):
@@ -28,3 +31,26 @@ def from_jax_arrays(tree, device=None):
         return as_device_array(leaf, device=device)
 
     return pytree.tree_map(convert, tree)
+
+
+def params_from_jax(cfg, jax_params, device=None) -> ParamTree:
+    """The port's parameters for ``cfg`` from the JAX package's
+    ``repro.models.Model(cfg).init(key)`` tree, given as numpy arrays (or
+    anything with ``__array__``). Each group's leaves are stacked along a
+    leading ``[count, ...]`` axis there (``repro/models/transformer.py:111``);
+    here every layer becomes a module of its own, in execution order.
+    Dtypes are kept, bfloat16 included. ``device`` as in
+    :func:`from_jax_arrays`."""
+    tree = from_jax_arrays(jax_params, device)
+    layers = []
+    for gi, (unit, count) in enumerate(layer_groups(cfg)):
+        group = tree["groups"][gi]
+        for ci in range(count):
+            for pi in range(len(unit)):
+                layers.append(pytree.tree_map(lambda a: a[ci].clone(),
+                                              group[pi]))
+    params = {"embed": tree["embed"], "layers": layers,
+              "final_norm": tree["final_norm"]}
+    if "head" in tree:
+        params["head"] = tree["head"]
+    return ParamTree(params)

@@ -45,6 +45,7 @@ from .placement import (NodeTarget, PlacementDecision, PlacementService,
                         WireCostModel)
 from .placement import service as placement_service
 from .placement import set_service as set_placement_service
+from .scheduler import ChunkScheduler, split_offload
 from .signature import In, InOut, KernelSignature, Local, NDRange, Out, Priv, dim_vec
 
 __all__ = [
@@ -63,5 +64,6 @@ __all__ = [
     "transfer_count", "tree_release", "tree_unwrap", "tree_wrap",
     "NodeTarget", "PlacementDecision", "PlacementService", "WireCostModel",
     "placement_service", "set_placement_service", "payload_nbytes",
+    "ChunkScheduler", "split_offload",
     "In", "InOut", "KernelSignature", "Local", "NDRange", "Out", "Priv", "dim_vec",
 ]

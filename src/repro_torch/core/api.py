@@ -530,6 +530,17 @@ class ActorPool:
                 f"{self.outstanding(w) if w is not None else '?'} outstanding)"
             ) from None
 
+    def map(self, payloads: Sequence[tuple], *,
+            timeout: Optional[float] = 300.0, deadlines=None,
+            **scheduler_kwargs) -> list:
+        """Run every payload on some worker via :class:`ChunkScheduler`
+        (pull-based balancing + straggler re-issue); ``deadlines`` (one
+        absolute ``time.monotonic`` value or None per payload) turns on
+        the scheduler's earliest-deadline-first pick."""
+        from .scheduler import ChunkScheduler
+        return ChunkScheduler(self, **scheduler_kwargs).run(
+            payloads, timeout=timeout, deadlines=deadlines)
+
     def __repr__(self):
         return (f"ActorPool({len(self._workers)} workers, "
                 f"policy={self.policy!r})")

@@ -17,7 +17,8 @@ case; this module generalizes composition to a declarative **DAG**:
 * **Combinators**: :meth:`Graph.broadcast` (fan-out one value to N
   consumers), :meth:`Graph.zip_join` (fan-in barrier), :meth:`Graph.select`
   (predicate routing, with :meth:`Graph.merge` as its first-wins dual for
-  speculative branches).
+  speculative branches), and :meth:`Graph.map_over` (per-chunk fan-out
+  through :class:`~repro_torch.core.scheduler.ChunkScheduler`).
 
 ``Graph.build()`` validates the topology **at build time** — cycle
 detection, dangling/arity/dtype-mismatch errors, each raised as a distinct
@@ -53,6 +54,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import math
 
+import numpy as np
 import torch
 
 from ..analysis.runtime import make_lock, make_rlock
@@ -60,7 +62,7 @@ from .actor import _UNSET, Actor, ActorRef, ActorSystem
 from .api import KernelDecl, _bound_fn
 from .errors import (ArityMismatchError, DanglingPortError, GraphCycleError,
                      GraphError, PortTypeMismatchError)
-from .memref import DeviceRef
+from .memref import DeviceRef, as_device_array, registry, to_numpy
 from .placement import GraphSite, NodeTarget
 from .placement import service as placement_service
 from .signature import dtype_name, to_torch_dtype
@@ -119,7 +121,7 @@ class Port:
 #: spawn an actor, so fan-out/fan-in adds no per-message hop
 _STRUCTURAL = ("broadcast", "zip_join", "select", "merge")
 #: node kinds backed by a spawned actor at runtime
-_ACTOR_KINDS = ("kernel", "actor", "func")
+_ACTOR_KINDS = ("kernel", "actor", "func", "map_over")
 
 
 def _edge_bytes(types) -> Optional[int]:
@@ -355,6 +357,51 @@ class Graph:
             self.bind(node, i, p)
         return node.out(0)
 
+    def map_over(self, target: KernelDecl, port: Port, *, chunks: int = 4,
+                 replicas: int = 2, policy: str = "least_loaded",
+                 devices: Optional[Sequence] = None,
+                 timeout: Optional[float] = 300.0,
+                 name: Optional[str] = None,
+                 min_chunk_bytes: int = 1 << 20,
+                 **scheduler_kwargs) -> Port:
+        """Per-chunk fan-out: split the value along axis 0 into ``chunks``
+        device-resident slices, dispatch them through a
+        :class:`~repro_torch.core.scheduler.ChunkScheduler` over a pool of
+        ``replicas`` kernel actors (placement-aware, straggler re-issuing),
+        and concatenate the results on the device.
+
+        Each chunk pays a fixed dispatch constant (a mailbox hop, a
+        device-side slice, a scheduler round-trip), so chunking only wins
+        once per-chunk compute dwarfs it. ``min_chunk_bytes`` (default
+        1 MiB) caps the effective chunk count so no slice drops below that
+        size: small inputs degrade to a single whole-array dispatch instead
+        of paying ``chunks`` dispatch constants for sub-millisecond
+        kernels. Pass ``min_chunk_bytes=0`` to force the requested chunk
+        count."""
+        if not isinstance(target, KernelDecl):
+            raise GraphError(
+                f"{self.name}/{name or _target_name(target)}: map_over "
+                f"needs a @kernel declaration, got {target!r}")
+        if len(target.signature.input_specs) != 1 or \
+                len(target.signature.output_specs) != 1:
+            raise GraphError(
+                f"{self.name}/{name or _target_name(target)}: map_over "
+                "kernels must take exactly one input and one output")
+        if target.preprocess is not None:
+            raise GraphError(
+                f"{self.name}/{name or _target_name(target)}: map_over "
+                "dispatches device-resident chunk refs, which a kernel "
+                "preprocess (running before ref unwrapping) cannot see; "
+                "apply the preprocess as a separate stage instead")
+        node = self._add(
+            "map_over", target, name or f"map_{_target_name(target)}", 1, 1,
+            options={"chunks": int(chunks), "replicas": int(replicas),
+                     "policy": policy, "devices": devices, "timeout": timeout,
+                     "min_chunk_bytes": int(min_chunk_bytes),
+                     "scheduler": dict(scheduler_kwargs)})
+        self.bind(node, 0, port)
+        return node.out(0)
+
     def output(self, *ports: Port) -> "Graph":
         """Declare the graph's result port(s); a single output resolves to
         its bare value, several to a tuple."""
@@ -476,6 +523,10 @@ class Graph:
                 else:
                     structs = None      # some shape unknown: cannot eval
             self._type_kernel_outputs(node, sig, structs)
+        elif node.kind == "map_over":
+            sig = node.target.signature
+            self._check_edge(node, 0, sig.input_specs[0], in_types[0])
+            node.out_types[0] = PortType.of(sig.output_specs[0].torch_dtype)
         elif node.kind == "broadcast":
             node.out_types = [in_types[0]] * node.n_out
         elif node.kind in ("zip_join",):
@@ -826,13 +877,13 @@ class Graph:
     def _ref_capable(self, node: GraphNode) -> bool:
         """Can this node consume DeviceRef payloads? Kernel-backed nodes
         without a preprocess can (the preprocess runs on the raw payload
-        *before* ref unwrapping)."""
+        *before* ref unwrapping); map_over splits refs device-side."""
         if node.kind == "kernel":
             return node.target.preprocess is None
         if node.kind == "actor":
             ka = self._kernel_actor_of(node.target)
             return ka is not None and ka.preprocess is None
-        return False
+        return node.kind == "map_over"
 
     def _terminals(self, key: Tuple[int, int], consumers, outset,
                    acc: set, seen: set) -> None:
@@ -867,7 +918,7 @@ class Graph:
             ka = self._kernel_actor_of(node.target)
             if ka is None or ka.postprocess is not None:
                 return False
-        else:
+        elif node.kind != "map_over":
             return False
         for oi in range(node.n_out):
             acc: set = set()
@@ -882,7 +933,8 @@ class Graph:
         byte sizes the wire-cost model prices a cross-node hop by.
         Existing actor refs are *fixed* — they already live somewhere —
         and only kernel declarations may be spawned remotely (their
-        declarations pickle; opaque Python stages stay on the driver)."""
+        declarations pickle; opaque Python stages and map_over pools stay
+        in the local process)."""
         pinned, fixed = node.device, False
         if node.kind == "actor":
             ka = self._kernel_actor_of(node.target)
@@ -916,7 +968,76 @@ class Graph:
                 # declared semantics for direct callers
                 return self.system.spawn(ka.clone(emit="ref"))
             return node.target
-        return self.system.spawn(node.target)
+        if node.kind == "func":
+            return self.system.spawn(node.target)
+        return self._spawn_map(node, device, want_ref, mngr)
+
+    def _spawn_map(self, node: GraphNode, device, want_ref: bool, mngr
+                   ) -> ActorRef:
+        from .scheduler import ChunkScheduler
+        opts = node.options
+        decl: KernelDecl = node.target
+        devices = opts["devices"]
+        if devices is None and device is not None:
+            devices = [device]
+        pool = mngr.spawn_pool(
+            decl, opts["replicas"], policy=opts["policy"], devices=devices,
+            emit="ref" if decl.postprocess is None else "declared")
+        # a host value is moved to the first replica's device once; the
+        # chunks are slices of that tensor, never copies through the host
+        home = next(iter(pool.placements.values()))
+        chunks, timeout = opts["chunks"], opts["timeout"]
+        min_bytes = opts.get("min_chunk_bytes", 0)
+        sched_kwargs = opts["scheduler"]
+
+        def run_map(x):
+            arr = x.array if isinstance(x, DeviceRef) \
+                else as_device_array(x, device=home)
+            n = int(arr.shape[0])
+            nbytes = arr.numel() * arr.element_size()
+            k = max(1, min(chunks, n))
+            if min_bytes and nbytes and nbytes // k < min_bytes:
+                # sub-threshold slices can't amortize the per-chunk
+                # dispatch constant; shrink the chunk count (down to a
+                # single whole-array dispatch) instead of paying it k times
+                k = max(1, min(k, nbytes // min_bytes))
+            bounds = np.linspace(0, n, k + 1).astype(int)
+            owned, payloads = [], []
+            for a, b in zip(bounds[:-1], bounds[1:]):
+                if a == b:
+                    continue
+                c = DeviceRef(arr[a:b], access="r")   # device-side slice
+                owned.append(c)
+                payloads.append((c,))
+            if not payloads:
+                # empty leading axis: run one empty chunk through the
+                # kernel so the result has the kernel's output dtype/shape
+                c = DeviceRef(arr[:0], access="r")
+                owned.append(c)
+                payloads.append((c,))
+            results: list = []
+            try:
+                results = ChunkScheduler(pool, **sched_kwargs).run(
+                    payloads, timeout=timeout)
+                parts = [r.array if isinstance(r, DeviceRef)
+                         else as_device_array(r, device=home)
+                         for r in results]
+                out = torch.cat(parts, dim=0)
+            finally:
+                for c in owned:
+                    c.release()
+                # chunk result refs too — on success their tensors are
+                # already captured by the concat, on failure nobody else
+                # will release them
+                for r in results:
+                    if isinstance(r, DeviceRef):
+                        r.release()
+            if want_ref:
+                return DeviceRef(out)
+            registry.count_readback()
+            return to_numpy(out)
+
+        return self.system.spawn(run_map)
 
 
 def _target_name(target) -> str:

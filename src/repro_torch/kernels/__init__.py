@@ -8,17 +8,21 @@ PyTorch versions. :data:`KERNELS` lists the kernels of this package.
 """
 from . import ops, ref
 from .build import CudaKernel, build_all
+from .flash_attention import KERNEL as FLASH_ATTENTION
+from .mandelbrot import KERNEL as MANDELBROT
 from .matmul import KERNEL as MATMUL
-from .ops import (compact_gather, matmul, radix_sort, stream_compact,
-                  wah_interleave)
+from .ops import (compact_gather, flash_attention, mandelbrot, matmul,
+                  radix_sort, stream_compact, wah_interleave)
 from .radix_sort import KERNEL as RADIX_PASS
 from .stream_compact import KERNEL as LOCAL_COMPACT
 from .wah import KERNEL as WAH_INTERLEAVE
 
 #: every hand-written kernel, in the order the main path first reaches them
-KERNELS = (MATMUL, RADIX_PASS, WAH_INTERLEAVE, LOCAL_COMPACT)
+KERNELS = (MATMUL, RADIX_PASS, WAH_INTERLEAVE, LOCAL_COMPACT, MANDELBROT,
+           FLASH_ATTENTION)
 
 __all__ = ["ops", "ref", "CudaKernel", "build_all", "KERNELS",
-           "MATMUL", "RADIX_PASS", "LOCAL_COMPACT", "WAH_INTERLEAVE",
-           "compact_gather", "matmul", "radix_sort", "stream_compact",
-           "wah_interleave"]
+           "MATMUL", "MANDELBROT", "RADIX_PASS", "LOCAL_COMPACT",
+           "WAH_INTERLEAVE", "FLASH_ATTENTION",
+           "compact_gather", "flash_attention", "mandelbrot", "matmul",
+           "radix_sort", "stream_compact", "wah_interleave"]

@@ -2,9 +2,11 @@
 
 Each operator runs on the device of the tensors it is given. For a CPU
 tensor the kernel wrappers (:mod:`.matmul`, :mod:`.radix_sort`,
-:mod:`.stream_compact`, :mod:`.wah`) take their plain versions; for a
-CUDA tensor they launch the hand-written kernels or raise, with no other
-path. ``impl="ref"`` is the explicit choice of the whole plain version
+:mod:`.stream_compact`, :mod:`.wah`, :mod:`.flash_attention`) take their
+plain versions; for a CUDA tensor they launch the hand-written kernels
+or raise, with no other path. :func:`mandelbrot` takes no tensor: it runs on the ``device`` it is
+given, by default the current CUDA device (``LookupError`` without one).
+``impl="ref"`` is the explicit choice of the whole plain version
 (:mod:`.ref`), which the tests and ``chip_smoke.py`` compare against.
 
 These operators also hold the global halves that the JAX package left to
@@ -19,15 +21,18 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.memref import default_device
 from . import ref
+from .flash_attention import flash_attention as _flash_attention_kernel
+from .mandelbrot import mandelbrot as _mandelbrot_kernel
 from .matmul import matmul as _matmul_kernel
 from .radix_sort import radix_pass
 from .ref import _take, u32_to_i64
 from .stream_compact import local_compact
 from .wah import wah_interleave as _wah_interleave_kernel
 
-__all__ = ["matmul", "stream_compact", "compact_gather", "radix_sort",
-           "wah_interleave"]
+__all__ = ["matmul", "mandelbrot", "stream_compact", "compact_gather",
+           "radix_sort", "wah_interleave", "flash_attention"]
 
 _IMPLS = ("auto", "ref")
 
@@ -45,6 +50,24 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto"
     if _plain(impl):
         return ref.matmul(a, b)
     return _matmul_kernel(a, b)
+
+
+# ----------------------------------------------------------------------------
+def mandelbrot(*, height: int, width: int, max_iter: int,
+               re_min: float, re_max: float, im_min: float, im_max: float,
+               row_offset: int = 0, total_height: Optional[int] = None,
+               impl: str = "auto", device=None) -> torch.Tensor:
+    """int32 escape counts of rows ``[row_offset, row_offset + height)``
+    of a ``total_height x width`` frame (paper §5.4), on ``device``."""
+    device = default_device() if device is None else torch.device(device)
+    th = total_height if total_height is not None else height
+    view = ref.mandelbrot_view(width, th, re_min, re_max, im_min, im_max)
+    if _plain(impl):
+        return ref.mandelbrot_rows(height, width, max_iter, view, row_offset,
+                                   device)
+    return _mandelbrot_kernel(height=height, width=width, max_iter=max_iter,
+                              view=view, row_offset=row_offset,
+                              device=device)
 
 
 # ----------------------------------------------------------------------------
@@ -124,3 +147,14 @@ def wah_interleave(fills: torch.Tensor, literals: torch.Tensor, *,
     if _plain(impl):
         return ref.wah_interleave(fills, literals)
     return _wah_interleave_kernel(fills, literals)
+
+
+# ----------------------------------------------------------------------------
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """Online-softmax attention, q ``[B,H,Sq,D]``, k/v ``[B,Hkv,Skv,D]``;
+    a query that sees no key gives 0."""
+    if _plain(impl):
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash_attention_kernel(q, k, v, causal=causal, window=window)

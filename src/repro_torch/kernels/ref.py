@@ -13,16 +13,20 @@ runs in int64 (:func:`u32_to_i64` / :func:`i64_to_u32`).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
     "u32_to_i64", "i64_to_u32",
     "matmul",
+    "MandelbrotView", "mandelbrot_view", "mandelbrot_rows", "mandelbrot",
     "radix_pass", "radix_sort_u32",
     "local_compact", "stream_compact",
     "wah_interleave",
+    "flash_attention",
 ]
 
 
@@ -58,6 +62,71 @@ def _blocks(n: int, bs: int) -> int:
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` accumulated in float32, cast to ``a``'s dtype."""
     return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+# ----------------------------------------------------------------------------
+# paper §5.4 — Mandelbrot iteration counts
+# ----------------------------------------------------------------------------
+class MandelbrotView(NamedTuple):
+    """A frame's coordinate origin and steps, each an exact f32 value."""
+    re_min: float
+    im_min: float
+    re_step: float
+    im_step: float
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def mandelbrot_view(width: int, total_height: int, re_min: float,
+                    re_max: float, im_min: float, im_max: float
+                    ) -> MandelbrotView:
+    """The steps of a ``total_height x width`` frame, computed in double
+    and rounded to f32 once, with the origin rounded to f32 — what the
+    JAX package's weakly typed Python floats become
+    (``repro/kernels/ops.py:72-75``)."""
+    return MandelbrotView(
+        _f32(re_min), _f32(im_min),
+        _f32((re_max - re_min) / max(width - 1, 1)),
+        _f32((im_max - im_min) / max(total_height - 1, 1)))
+
+
+def mandelbrot_rows(height: int, width: int, max_iter: int,
+                    view: MandelbrotView, row_offset: int, device
+                    ) -> torch.Tensor:
+    """int32 counts of rows ``[row_offset, row_offset + height)`` under
+    ``view``, on ``device``: coordinates ``re_min + x * re_step`` and
+    ``im_min + y * im_step``, each operation rounded to f32, then
+    :func:`mandelbrot`."""
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    x = torch.arange(width, dtype=torch.float32, device=device)
+    y = torch.arange(height, dtype=torch.float32, device=device) + row_offset
+    re0 = f32(view.re_min) + x * f32(view.re_step)
+    im0 = f32(view.im_min) + y * f32(view.im_step)
+    return mandelbrot(re0[None, :], im0[:, None], max_iter)
+
+
+def mandelbrot(re0: torch.Tensor, im0: torch.Tensor, max_iter: int
+               ) -> torch.Tensor:
+    """int32 iteration counts of z <- z^2 + c until |z| > 2, for
+    broadcastable f32 coordinate grids: a masked loop of elementwise ops,
+    each rounded to f32, in the JAX oracle's order."""
+    re0, im0 = torch.broadcast_tensors(re0, im0)
+    zr = torch.zeros_like(re0)
+    zi = torch.zeros_like(re0)
+    count = torch.zeros(re0.shape, dtype=torch.int32, device=re0.device)
+    for _ in range(max_iter):
+        zr2, zi2 = zr * zr, zi * zi
+        alive = (zr2 + zi2) <= 4.0
+        new_zr = zr2 - zi2 + re0
+        new_zi = 2.0 * zr * zi + im0
+        zr = torch.where(alive, new_zr, zr)
+        zi = torch.where(alive, new_zi, zi)
+        count += alive
+    return count
 
 
 # ----------------------------------------------------------------------------
@@ -161,3 +230,36 @@ def wah_interleave(fills: torch.Tensor, literals: torch.Tensor) -> torch.Tensor:
     pair = torch.stack([fills.view(torch.int32),
                         literals.view(torch.int32)], dim=1)
     return pair.reshape(-1).view(fills.dtype)
+
+
+# ----------------------------------------------------------------------------
+# LM prefill — attention with an online-softmax kernel
+# ----------------------------------------------------------------------------
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of q ``[B,H,Sq,D]`` over k, v ``[B,Hkv,Skv,D]`` (GQA when
+    Hkv divides H) in f32, cast to q's dtype. Query positions are
+    right-aligned (``Skv - Sq`` ahead of the keys'); ``window`` keeps the
+    last ``window`` positions. A query that sees no key gives 0 — the
+    kernel's rule; the JAX oracle gives NaN there."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = h // hkv
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    scale = d ** -0.5 if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > (qpos - window)
+    logits = logits.masked_fill(~mask, -math.inf)
+    probs = torch.softmax(logits, dim=-1)
+    probs = probs.masked_fill(~mask.any(-1)[:, None], 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
+    return out.to(q.dtype)

@@ -1,0 +1,130 @@
+"""Shared model layers: norms, rotary embeddings, the MLP, initializers —
+the port of the JAX package's ``repro/models/layers.py``.
+
+Pure functions over parameter trees that read like the JAX package's
+dicts (``p["scale"]``): :class:`ParamTree` holds them as nested
+``nn.Module``\\ s, so a model's layers are modules of their own on one
+device. Initializers take an explicit ``torch.Generator`` and device and
+return plain dicts of tensors. ``apply_m_rope`` and
+``sinusoidal_positions`` come with the vlm and encdec families.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["ParamTree", "init_norm", "apply_norm", "rope_freqs",
+           "apply_rope", "init_mlp", "apply_mlp", "init_embedding", "normal"]
+
+
+class ParamTree(nn.Module):
+    """Parameters as nested modules that read like the JAX package's
+    parameter dicts: ``tree["attn"]["wq"]``. Mappings become
+    :class:`ParamTree`\\ s, lists ``nn.ModuleList``\\ s of them, tensors
+    frozen ``nn.Parameter``\\ s (the port runs forward passes only)."""
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                self.add_module(name, ParamTree(value))
+            elif isinstance(value, (list, tuple)):
+                self.add_module(name, nn.ModuleList(ParamTree(v) for v in value))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        if name in self._modules:
+            return self._modules[name]
+        raise KeyError(name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def normal(gen: torch.Generator, shape, std: float, dtype, device
+           ) -> torch.Tensor:
+    """Gaussian weights of standard deviation ``std``, drawn in f32 from
+    ``gen`` on ``device`` and cast to ``dtype``."""
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return w.mul_(std).to(dtype)
+
+
+# ----------------------------------------------------------------------------
+# normalization
+# ----------------------------------------------------------------------------
+def init_norm(d: int, kind: str, dtype, device) -> dict:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6
+               ) -> torch.Tensor:
+    """RMSNorm or LayerNorm over the last axis, in f32, cast back."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * p["scale"].float()).to(x.dtype)
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm {kind!r}")
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# rotary position embeddings
+# ----------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [B,S,H,D]; positions: [B,S] ints. Half-split (NeoX) convention."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (d/2,)
+    angles = positions[..., None].float() * freqs                 # [B,S,d/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# MLP
+# ----------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, d: int, f: int, kind: str, dtype, device
+             ) -> dict:
+    if kind != "swiglu":
+        raise NotImplementedError(f"the port's MLP is swiglu; {kind!r} "
+                                  "comes with its model family (ROADMAP A10)")
+    return {"w_gate": normal(gen, (d, f), 1.0 / math.sqrt(d), dtype, device),
+            "w_up": normal(gen, (d, f), 1.0 / math.sqrt(d), dtype, device),
+            "w_out": normal(gen, (f, d), 1.0 / math.sqrt(f), dtype, device)}
+
+
+def apply_mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind != "swiglu":
+        raise NotImplementedError(f"the port's MLP is swiglu; {kind!r} "
+                                  "comes with its model family (ROADMAP A10)")
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_out"]
+
+
+# ----------------------------------------------------------------------------
+def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype, device
+                   ) -> torch.Tensor:
+    return normal(gen, (vocab, d), 0.02, dtype, device)

@@ -1,0 +1,58 @@
+"""cfg-bound model facade — the port of the JAX package's
+``repro/models/model.py`` for prefill: ``init`` and ``forward``.
+
+A ``Model`` is bound to a device: the current CUDA device unless the
+caller names another (``LookupError`` without a card), like every entry
+point of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.memref import as_device_array, default_device
+from . import transformer
+from .attention import ATTN_IMPLS
+from .layers import ParamTree
+
+__all__ = ["Model"]
+
+
+class Model:
+    """Dense decoder bound to a config, an attention implementation
+    (``"ref"``: grouped einsum, the default; ``"kernel"``: the flash
+    attention kernel) and a device."""
+
+    def __init__(self, cfg: ModelConfig, vocab: Optional[int] = None,
+                 attn_impl: str = "ref", device=None):
+        transformer.check_family(cfg)
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl={attn_impl!r}; expected one of "
+                             f"{ATTN_IMPLS}")
+        self.cfg = cfg
+        self.vocab = vocab or cfg.vocab_size
+        self.attn_impl = attn_impl
+        self.device = default_device() if device is None \
+            else torch.device(device)
+
+    def init(self, seed: int) -> ParamTree:
+        """Random parameters on the model's device from a seeded
+        ``torch.Generator`` there."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return transformer.init_params(gen, self.cfg, self.vocab,
+                                       device=self.device)
+
+    def forward(self, params: ParamTree, batch: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``batch["tokens"]`` [B,S] (host array or tensor) → (logits
+        [B,S,V], aux loss)."""
+        tokens = as_device_array(batch["tokens"], device=self.device)
+        positions = batch.get("positions")
+        if positions is not None:
+            positions = as_device_array(positions, device=self.device)
+        with torch.no_grad():
+            return transformer.forward(params, self.cfg, tokens,
+                                       positions=positions,
+                                       attn_impl=self.attn_impl)

@@ -23,6 +23,9 @@ def test_port_imports_no_jax_and_no_repro():
         import sys
         import repro_torch, repro_torch.core, repro_torch.indexing
         import repro_torch.kernels, repro_torch.convert, repro_torch.analysis
+        import repro_torch.core.scheduler, repro_torch.configs
+        import repro_torch.models, repro_torch.models.transformer
+        import repro_torch.examples.mandelbrot_offload
         bad = sorted(m for m in sys.modules
                      if m.startswith("jax") or m == "repro"
                      or m.startswith("repro."))
@@ -42,6 +45,9 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
         from repro_torch.core import ActorSystem, DeviceRef, In, Out, kernel
         from repro_torch.core.memref import default_device
         from repro_torch.convert import from_jax_arrays
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.kernels import ops
+        from repro_torch.models import Model
 
         def raises(fn):
             try:
@@ -58,6 +64,10 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
         print("spawn", raises(lambda: system.spawn(double)))
         print("put", raises(lambda: DeviceRef.put(np.ones(3))))
         print("convert", raises(lambda: from_jax_arrays(np.ones(3))))
+        print("mandelbrot", raises(lambda: ops.mandelbrot(
+            height=8, width=8, max_iter=2, re_min=-2.0, re_max=1.0,
+            im_min=-1.0, im_max=1.0)))
+        print("model", raises(lambda: Model(get_smoke_config("qwen3-1.7b"))))
         print("devices", mngr.devices())
         cpu = mngr.find_device(platform="cpu")
         print("cpu", cpu.name, cpu.torch_device)
@@ -69,7 +79,8 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
     """)
     assert proc.returncode == 0, proc.stderr
     out = proc.stdout
-    for name in ("find_device", "default_device", "spawn", "put", "convert"):
+    for name in ("find_device", "default_device", "spawn", "put", "convert",
+                 "mandelbrot", "model"):
         assert f"{name} True" in out, out
     assert "devices []" in out
     assert "cpu cpu:0 cpu" in out

@@ -14,15 +14,21 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import ActorSystem, DeviceRef, In, InOut, Out, kernel
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import (ActorSystem, DeviceRef, Graph, In, InOut, Out,
+                              kernel)
 from repro_torch.core.memref import registry
+from repro_torch.examples.mandelbrot_offload import Frame
+from repro_torch.examples.mandelbrot_offload import run as run_offload
 from repro_torch.indexing import (build_wah_index, build_wah_index_numpy,
                                   wah_index_pipeline_actors)
 from repro_torch.kernels import KERNELS, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.radix_sort import radix_pass
 from repro_torch.kernels.stream_compact import local_compact
 from repro_torch.kernels.wah import wah_interleave
+from repro_torch.models import Model
 
 pytestmark = pytest.mark.cuda
 
@@ -178,3 +184,114 @@ def test_inout_and_spill_through_pinned_memory(cuda_device):
         np.testing.assert_allclose(clone.to_value(), 1.0)
         out.release()
         clone.release()
+
+
+VIEW = dict(re_min=-0.5, re_max=0.1, im_min=-0.7375, im_max=-0.1375)
+
+
+@pytest.mark.parametrize("height,width,max_iter,row_offset,total", [
+    (1080, 1920, 200, 0, 1080),     # ragged rows: 1080 is no multiple of 8
+    (540, 1920, 200, 540, 1080),    # the bottom half of that frame
+    (37, 300, 100, 5, 90),          # width no multiple of 128
+    (8, 128, 16, 0, 8),
+    (1, 1, 10, 0, 1),
+])
+def test_mandelbrot_kernel_is_bit_exact(cuda_device, height, width,
+                                        max_iter, row_offset, total):
+    kw = dict(height=height, width=width, max_iter=max_iter,
+              row_offset=row_offset, total_height=total, **VIEW)
+    before = _launches()["mandelbrot"]
+    got = ops.mandelbrot(device=cuda_device, **kw)
+    want = ops.mandelbrot(device=cuda_device, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert got.device == cuda_device and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert _launches()["mandelbrot"] == before + 1
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,window", [
+    (1, 2, 2, 128, 128, 64, True, None),       # MHA, causal
+    (2, 4, 2, 128, 256, 64, False, None),      # GQA, not causal
+    (1, 8, 1, 64, 128, 128, True, None),       # MQA
+    (1, 2, 2, 128, 256, 64, True, 100),        # local window
+    (1, 2, 2, 200, 70, 128, True, 16),         # Sq > Skv: blind rows
+    (2, 4, 2, 33, 45, 16, True, None),         # ragged tiles
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_kernel_within_tolerance(cuda_device, b, h, hkv, sq,
+                                                 skv, d, causal, window,
+                                                 dtype, tol):
+    g = torch.Generator(device=cuda_device).manual_seed(sq * skv + d)
+    q = torch.randn(b, h, sq, d, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(b, hkv, skv, d, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(b, hkv, skv, d, generator=g, device=cuda_device).to(dtype)
+    before = _launches()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if sq > skv:
+        assert (got[:, :, :sq - skv] == 0).all()
+    assert _launches()["flash_attention"] == before + 1
+
+
+def test_flash_attention_reads_strided_projections(cuda_device):
+    """The model hands the kernel transposed [B,S,H,D] views."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(2, 300, 16, 128, generator=g, device=cuda_device)
+    kv = torch.randn(2, 300, 8, 128, generator=g, device=cuda_device)
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    torch.testing.assert_close(flash_attention(q, k, k),
+                               ref.flash_attention(q, k, k),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_offload_frames_on_the_card_and_the_cpu(cuda_device):
+    frame = Frame(width=640, height=360, max_iter=60, **VIEW)
+    before = registry.stats()
+    launches = _launches()["mandelbrot"]
+    with ActorSystem(max_workers=4) as system:
+        out = run_offload(system, frame, shares=(1.0, 0.5), chunks=6)
+    assert out["frame"].device == cuda_device
+    assert registry.stats()["transfers"] == before["transfers"]
+    assert _launches()["mandelbrot"] > launches
+
+
+def test_map_over_stays_on_the_card(cuda_device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = torch.rand(256, 128, generator=torch.Generator().manual_seed(0)
+                   ).to(cuda_device)
+    mm = kernel(In(torch.float32), Out(torch.float32), name="mm")(
+        lambda x: ops.matmul(x, w))
+    x = np.random.default_rng(6).random((1024, 256), np.float32)
+    with ActorSystem(max_workers=4) as system:
+        g = Graph(system, name="mapped_mm")
+        g.output(g.map_over(mm, g.source("x", torch.float32), chunks=4,
+                            replicas=2, min_chunk_bytes=0))
+        built = g.build()
+        x_ref = DeviceRef.put(x)
+        before = registry.stats()
+        launches = _launches()["matmul"]
+        out = built.ask(x_ref)
+        after = registry.stats()
+        x_ref.release()
+    assert after["transfers"] == before["transfers"]
+    assert _launches()["matmul"] - launches == 4
+    want = ref.matmul(torch.from_numpy(x).to(cuda_device), w).cpu().numpy()
+    np.testing.assert_allclose(out, want, rtol=2e-5, atol=2e-5)
+
+
+def test_smoke_model_prefill_kernel_matches_plain(cuda_device):
+    cfg = get_smoke_config("qwen3-1.7b")
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 100))
+    model = Model(cfg, attn_impl="kernel")
+    assert model.device == cuda_device
+    params = model.init(0)
+    before = _launches()["flash_attention"]
+    got, _ = model.forward(params, {"tokens": tokens})
+    want, _ = Model(cfg, attn_impl="ref").forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert _launches()["flash_attention"] - before == cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

@@ -2,7 +2,8 @@
 
     python3 tools/profile_main_path.py
 
-Runs each main-path phase of ``chip_smoke.py`` once to warm up, then once
+Runs each main-path phase of ``chip_smoke.py``, built by that script's own
+phase builders at its shapes, once to warm up, then once
 under ``torch.profiler`` and once more timed by the host clock (ending in
 ``torch.cuda.synchronize()``). For each phase it prints the wall time,
 the device's busy time (the union of the intervals in which a kernel or a
@@ -21,8 +22,9 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
+sys.path.insert(0, os.path.dirname(HERE))
 
+import chip_smoke as smoke  # noqa: E402  (puts src/ on the path)
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
@@ -78,9 +80,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA device is available", file=sys.stderr)
         return 2
-    from repro_torch.core import ActorSystem, In, NDRange, Out, dim_vec, kernel
+    from repro_torch.core import ActorPool, ActorSystem
+    from repro_torch.examples.mandelbrot_offload import (offload, scheduled,
+                                                         spawn_workers)
     from repro_torch.indexing import build_wah_index, wah_index_pipeline_actors
-    from repro_torch.kernels import KERNELS, build_all, ops
+    from repro_torch.kernels import KERNELS, build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -91,29 +95,43 @@ def main() -> int:
     rng = np.random.default_rng(0)
     rows = []
     with ActorSystem(name="profile") as system:
-        n = 4096
-        m_mult = kernel(In(torch.float32), In(torch.float32),
-                        Out(torch.float32, shape=(n, n)),
-                        nd_range=NDRange(dim_vec(n, n)),
-                        name="m_mult")(lambda a, b: ops.matmul(a, b))
-        worker = system.spawn(m_mult)
-        m1 = rng.random((n, n), np.float32)
-        m2 = rng.random((n, n), np.float32)
-        rows.append(_phase("m_mult 4096x4096", lambda: worker.ask(m1, m2)))
+        dev = system.opencl_manager().find_device().torch_device
+        n = smoke.MM_N
+        worker, m1, m2 = smoke.spawn_m_mult(system, n, rng)
+        rows.append(_phase(f"m_mult {n}x{n}", lambda: worker.ask(m1, m2)))
 
-        values = torch.from_numpy(
-            rng.integers(0, 64, 1 << 24).astype(np.uint32)).cuda()
+        values = torch.from_numpy(smoke.wah_values(rng)).to(dev)
         rows.append(_phase("build_wah_index n=2^24",
-                           lambda: build_wah_index(values, 64)))
+                           lambda: build_wah_index(values, smoke.WAH_CARD)))
+        del values
 
-        k = 1 << 23
-        fills = (rng.integers(0, 2, k) *
-                 ((1 << 31) | rng.integers(1, 99, k))).astype(np.uint32)
-        lits = rng.integers(1, 2 ** 31, k).astype(np.uint32)
+        fills, lits = smoke.pipeline_inputs(rng)
         for mode in ("staged", "fused"):
-            pipe = wah_index_pipeline_actors(system, k, mode=mode)
+            pipe = wah_index_pipeline_actors(system, smoke.PIPE_K, mode=mode)
             rows.append(_phase(f"wah pipeline {mode} k=2^23",
                                lambda: pipe.ask(fills, lits)))
+
+        frame = smoke.offload_frame()
+        cpu_worker, card_worker = spawn_workers(system, frame, dev)
+        for share in smoke.OFFLOAD_SHARES:
+            rows.append(_phase(
+                f"mandelbrot offload {frame.width}x{frame.height} "
+                f"it={frame.max_iter} device {share:.0%}",
+                lambda: offload(frame, cpu_worker, card_worker, share, dev)))
+        pool = ActorPool(system, [card_worker, cpu_worker])
+        rows.append(_phase(
+            f"mandelbrot ActorPool.map {smoke.OFFLOAD_CHUNKS} chunks",
+            lambda: scheduled(frame, pool, smoke.OFFLOAD_CHUNKS, dev)))
+
+        mapped, x_ref, _ = smoke.map_over_graph(system, rng, dev)
+        rows.append(_phase(f"map_over matmul {smoke.MAP_ROWS}x{smoke.MAP_K}",
+                           lambda: mapped.ask(x_ref)))
+        x_ref.release()
+
+    _, model, params, tokens = smoke.prefill_model(rng, dev)
+    rows.append(_phase(
+        f"qwen3-1.7b prefill {smoke.PREFILL_B}x{smoke.PREFILL_S} bf16",
+        lambda: model.forward(params, {"tokens": tokens})))
     print(json.dumps({"card": card, "phases": rows}), flush=True)
     return 0
 
