@@ -25,7 +25,9 @@ port's main path through the entry points a user calls:
 * the qwen3-1.7b prefill forward at full width (28 layers, random bf16
   weights from a seed, 2 x 2048 tokens) with the flash-attention kernel,
   against the same forward with the plain attention, and an f32 forward
-  at 512 tokens.
+  at 512 tokens. B6's bf16 kernel is also timed against SDPA at the
+  prefill's own launch shape, and its registers, spills and shared memory
+  are printed.
 
 Each main-path phase sets every kernel's launch count to 0 before it and
 reads the counts after it; a kernel of the phase that was not launched
@@ -57,6 +59,10 @@ BF16_FLOPS = 989e12
 #: the f32 peak counts an FMA as two operations; a kernel that issues no
 #: FMA (B2) gets one operation per FMA slot
 F32_NON_FMA_OPS = F32_FLOPS / 2
+#: device cycles of torch.cuda._sleep that hold the card while a timed
+#: loop is enqueued: about 50 ms at the H100's clocks, longer than the
+#: host needs to enqueue any loop of one launch a call
+HOLD_CYCLES = 100_000_000
 
 MM_N = 4096
 QUICKSTART_N = 512
@@ -77,16 +83,34 @@ OFFLOAD_CHUNKS = 16
 #: the qwen3-1.7b layer's attention at 4096 tokens
 FA_B, FA_H, FA_HKV, FA_S, FA_D = 1, 16, 8, 4096, 128
 #: B6 against its plain version. f32: both are IEEE f32 and differ in
-#: summation order (tests/test_kernels.py's 2e-4). bf16 at the layer shape:
-#: the H100 read a max_abs_err of 0.00195 (one bf16 step at |x| in
-#: [0.25, 0.5)) against a plain output of RMS 0.068; the limit is four
-#: times that reading, 12 % of the RMS, a quarter of the 3e-2 the
+#: summation order (tests/test_kernels.py's 2e-4). bf16 at the layer shape
+#: (inputs from seed 0): the H100 read a max_abs_err of 0.00195 (one bf16
+#: step at |x| in [0.25, 0.5)) from the SIMT kernel and 0.0039 (one step
+#: in [0.5, 1)) from the wgmma kernel, whose P enters P.V as two bf16
+#: halves, against a plain output of RMS 0.068; the limit is four times
+#: the first reading, 12 % of the RMS, a quarter of the 3e-2 the
 #: small-shape tests allow
 FA_F32_TOL = 2e-4
 FA_BF16_ATOL = 8e-3
+#: An absolute limit on bf16 outputs depends on where a rounding
+#: difference lands: one step is 0.0039 for |x| in [0.5, 1) but 0.0156 in
+#: [2, 4), and the plain output reaches 3.7. Kernel and plain version both
+#: round an f32 result to bf16, and their f32 results differ far less than
+#: a step, so a correct kernel is at most FA_BF16_STEPS bf16 steps from the
+#: plain output at every element, whatever the seed. A step is that of
+#: bf16 at |plain| (2^(e - 7) for |x| in [2^e, 2^(e+1))); below
+#: FA_BF16_STEP_FLOOR it is the step at the floor (2^-10). Held at both
+#: bf16 shapes over the seeds FA_BF16_SEEDS
+FA_BF16_STEPS = 1.0
+FA_BF16_STEP_FLOOR = 2.0 ** -3
+FA_BF16_SEEDS = (0, 1, 2)
 MAP_ROWS, MAP_K = 8192, 4096
 MAP_CHUNKS, MAP_REPLICAS = 4, 2
 PREFILL_B, PREFILL_S, PREFILL_F32_S = 2, 2048, 512
+#: B6's two bf16 shapes: the qwen3-1.7b layer at 4096 tokens, and the
+#: prefill phase's own launch (PREFILL_B x PREFILL_S)
+FA_LAYER = (FA_B, FA_H, FA_HKV, FA_S, FA_S, FA_D)
+FA_PREFILL = (PREFILL_B, FA_H, FA_HKV, PREFILL_S, PREFILL_S, FA_D)
 #: kernel vs plain attention through 28 bf16 layers: the plain path rounds
 #: the probabilities to bf16 before P.V and the kernel does not, so the
 #: residual streams drift apart by bf16 rounding compounded over the
@@ -110,19 +134,59 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def attention_inputs(shape, dtype, generator, dev):
+    """q ``[B,H,Sq,D]``, k and v ``[B,Hkv,Skv,D]`` for ``shape`` (B, H,
+    Hkv, Sq, Skv, D), standard normal from ``generator``, in ``dtype``."""
+    b, h, hkv, sq, skv, d = shape
+    return tuple(torch.randn(*s, generator=generator, device=dev).to(dtype)
+                 for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| of two bf16 tensors, per element, in bf16 steps at
+    |want| (|want| floored at FA_BF16_STEP_FLOOR)."""
+    mag = want.float().abs().clamp_min(FA_BF16_STEP_FLOOR)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (got.float() - want.float()).abs() / step
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events.
+
+    The device is held busy (``torch.cuda._sleep``) while the calls are
+    enqueued, so they run back to back: a call whose host work outlasts
+    its kernel (B6 at the prefill shape) is timed on the device, not at
+    the host's enqueue rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int, rounds: int = 5) -> float:
+    """Host time to enqueue one call of ``fn``, in µs, with the device held
+    busy so that no call waits for it: the median over ``rounds`` of the
+    mean over ``reps`` calls (the host's CPU is shared and its speed
+    varies between rounds)."""
+    fn()
+    means = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        means.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return sorted(means)[rounds // 2]
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -223,7 +287,9 @@ def main() -> int:
     from repro_torch.kernels import (FLASH_ATTENTION, KERNELS, LOCAL_COMPACT,
                                      MANDELBROT, MATMUL, RADIX_PASS,
                                      WAH_INTERLEAVE, build_all, ops, ref)
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention,
+                                                     kernel_info)
     from repro_torch.kernels.mandelbrot import mandelbrot as mandelbrot_kernel
     from repro_torch.kernels.matmul import matmul as matmul_kernel
     from repro_torch.models import Model
@@ -241,6 +307,14 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     log(f"built {len(KERNELS)} kernels in {build_all(KERNELS):.2f} s")
+    for d in HEAD_DIMS:
+        info = kernel_info(d)
+        log(f"flash_attention bf16 kernel, head dim {d}: {info['registers']} "
+            f"registers a thread at launch, {info['spill_bytes']} spill "
+            f"bytes, {info['smem_bytes']} bytes of shared memory a block; "
+            f"P.V: {info['pv']}")
+        check(info["spill_bytes"] == 0,
+              f"flash_attention bf16 kernel (head dim {d}) spills")
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -383,16 +457,14 @@ def main() -> int:
 
     fa_rng = torch.Generator(device=dev).manual_seed(0)
 
-    def qkv(b, h, hkv, sq, skv, d, dtype):
-        return (torch.randn(b, h, sq, d, generator=fa_rng, device=dev).to(dtype),
-                torch.randn(b, hkv, skv, d, generator=fa_rng, device=dev).to(dtype),
-                torch.randn(b, hkv, skv, d, generator=fa_rng, device=dev).to(dtype))
+    def qkv(*shape_dtype):
+        return attention_inputs(shape_dtype[:6], shape_dtype[6], fa_rng, dev)
 
     fa_err = {}
     for tag, shape, dtype, window, rtol, atol in (
-            (f"bf16 causal S={FA_S}", (FA_B, FA_H, FA_HKV, FA_S, FA_S, FA_D),
+            (f"bf16 causal S={FA_S}", FA_LAYER,
              torch.bfloat16, None, 0.0, FA_BF16_ATOL),
-            (f"f32 causal S={FA_S}", (FA_B, FA_H, FA_HKV, FA_S, FA_S, FA_D),
+            (f"f32 causal S={FA_S}", FA_LAYER,
              torch.float32, None, FA_F32_TOL, FA_F32_TOL),
             ("f32 window 256 S=1024", (FA_B, FA_H, FA_HKV, 1024, 1024, FA_D),
              torch.float32, 256, FA_F32_TOL, FA_F32_TOL)):
@@ -408,20 +480,87 @@ def main() -> int:
             f"atol {atol}); RMS of the plain output {rms}, max |plain| "
             f"{float(want.abs().max())}")
         del got, want
-    q, k, v = qkv(FA_B, FA_H, FA_HKV, FA_S, FA_S, FA_D, torch.bfloat16)
-    fa_ops = 4.0 * FA_B * FA_H * FA_S * FA_S * FA_D / 2       # causal
-    fa_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+
+    def fa_bound_ms(q, k, v):
+        """Causal attention's least time: 4·B·H·Sq·Skv·D / 2 operations at
+        the bf16 tensor-core peak against each input read and the output
+        written once."""
+        b, h, s, d = q.shape
+        return max(bytes_ms(q.element_size() * (2 * q.numel() + k.numel() +
+                                                v.numel())),
+                   ops_ms(4.0 * b * h * s * s * d / 2, BF16_FLOPS))
+
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+
+    q, k, v = qkv(*FA_LAYER, torch.bfloat16)
     rows["flash_attention"] = dict(
         kernel=FLASH_ATTENTION, max_abs_err=fa_err[f"bf16 causal S={FA_S}"],
         ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 10),
         plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True),
                          3),
-        bound_ms=max(bytes_ms(fa_bytes), ops_ms(fa_ops, BF16_FLOPS)),
-        bound_by="operations",
-        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 10),
+        bound_ms=fa_bound_ms(q, k, v), bound_by="operations",
+        library_ms=cuda_ms(lambda: sdpa(q, k, v), 10),
         library="F.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True), bf16")
+    # bf16 at both shapes over several seeds, in bf16 steps: the layer
+    # shape and the prefill's own launch, PREFILL_B x 16 (8 KV) heads x
+    # PREFILL_S^2 x 128, causal
+    sweep = []
+    for shape in (FA_LAYER, FA_PREFILL):
+        for seed in FA_BF16_SEEDS:
+            q, k, v = attention_inputs(
+                shape, torch.bfloat16,
+                torch.Generator(device=dev).manual_seed(seed), dev)
+            got = flash_attention(q, k, v, causal=True)
+            want = ref.flash_attention(q, k, v, causal=True)
+            steps = bf16_steps(got, want)
+            reading = dict(shape=list(shape), seed=seed,
+                           max_abs_err=max_abs_err(got.float(), want.float()),
+                           max_steps=float(steps.max()),
+                           share_differ=float((steps > 0).float().mean()),
+                           share_over_limit=float(
+                               (steps > FA_BF16_STEPS).float().mean()),
+                           max_abs_plain=float(want.float().abs().max()))
+            sweep.append(reading)
+            log(f"flash_attention bf16 causal {shape} seed {seed}: "
+                f"max_abs_err {reading['max_abs_err']}, "
+                f"{reading['max_steps']} bf16 steps at most (limit "
+                f"{FA_BF16_STEPS}), share of elements that differ "
+                f"{reading['share_differ']}, beyond the limit "
+                f"{reading['share_over_limit']}; max |plain| "
+                f"{reading['max_abs_plain']}")
+            check(reading["max_steps"] <= FA_BF16_STEPS,
+                  f"flash_attention bf16 {shape} seed {seed}: "
+                  f"{reading['max_steps']} bf16 steps from the plain "
+                  f"version > {FA_BF16_STEPS}")
+            del q, k, v, got, want, steps
+    rows["flash_attention"]["bf16_sweep"] = sweep
+    torch.cuda.empty_cache()
+
+    q, k, v = attention_inputs(
+        FA_PREFILL, torch.bfloat16, torch.Generator(device=dev).manual_seed(0),
+        dev)
+    prefill_shape = dict(
+        shape=list(FA_PREFILL),
+        max_abs_err=sweep[len(FA_BF16_SEEDS)]["max_abs_err"],
+        ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20),
+        bound_ms=fa_bound_ms(q, k, v),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v), 20),
+        host_us=host_us(lambda: flash_attention(q, k, v, causal=True), 20),
+        library_host_us=host_us(lambda: sdpa(q, k, v), 20))
+    rows["flash_attention"]["prefill_shape"] = prefill_shape
+    for tag, r in ((f"{FA_B}x{FA_H}({FA_HKV})x{FA_S}^2x{FA_D}",
+                    rows["flash_attention"]),
+                   (f"{PREFILL_B}x{FA_H}({FA_HKV})x{PREFILL_S}^2x{FA_D}",
+                    prefill_shape)):
+        log(f"flash_attention bf16 causal {tag}: kernel {r['ms']:.4f} ms, "
+            f"SDPA {r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x"
+            f"), bound {r['bound_ms']:.4f} ms")
+    log(f"flash_attention bf16: {prefill_shape['host_us']:.1f} us of host "
+        "work a call (wrapper, custom op, tensor maps, launch); SDPA "
+        f"{prefill_shape['library_host_us']:.1f} us")
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -615,6 +754,9 @@ def main() -> int:
                  "library": row["library"], "card": card}
         if "op_ms" in row:
             entry["radix_sort_ms"] = row["op_ms"]
+        for extra in ("prefill_shape", "bf16_sweep"):
+            if extra in row:
+                entry[extra] = row[extra]
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -113,16 +113,24 @@ class CudaKernel:
             return self._lib
 
     # -- launching ---------------------------------------------------------
-    def launch(self, fn_name: str, *args) -> None:
-        """Call one exported launch function; raise if CUDA refused it."""
+    def _call(self, fn_name: str, *args) -> None:
         lib = self._load()
         err = getattr(lib, fn_name)(*args)
         if err != 0:
             msg = lib.repro_error_string(err).decode()
-            raise RuntimeError(f"kernel {self.name!r} ({fn_name}) failed to "
-                               f"launch: CUDA error {err}: {msg}")
+            raise RuntimeError(f"kernel {self.name!r} ({fn_name}) failed: "
+                               f"CUDA error {err}: {msg}")
+
+    def launch(self, fn_name: str, *args) -> None:
+        """Call one exported launch function; raise if CUDA refused it."""
+        self._call(fn_name, *args)
         with self._lock:
             self.launches += 1
+
+    def query(self, fn_name: str, *args) -> None:
+        """Call an exported function that launches nothing (an attribute
+        query); raise on a CUDA error. The launch count does not move."""
+        self._call(fn_name, *args)
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:

@@ -1,24 +1,34 @@
 """Flash attention forward on the card: the port of the JAX package's
 ``kernels/flash_attention.py::pallas_flash_attention``.
 
-The kernel is ``csrc/flash_attention.cu``: one block per (batch, head,
-64-query tile), an online softmax in f32 over 64-key tiles staged in
-shared memory, GQA by indexing the K/V head, causal and local-window
-masks on right-aligned positions, and the key tiles outside the masks
-skipped. :func:`flash_attention` takes the plain version for CPU tensors
-and launches the kernel for CUDA tensors; there is no other path.
+The kernels are in ``csrc/flash_attention.cu``. bf16 runs on the Hopper
+tensor cores: one block per (head, batch, 128-query tile), a producer
+warp loading K and V tiles by TMA into a two-stage ring, two consumer
+warpgroups computing S = QKᵀ and O += PV with ``wgmma`` and the online
+softmax in registers. f32 runs as IEEE f32 on the SIMT pipes, one block
+per 64-query tile. Both take GQA by indexing the K/V head, causal and
+local-window masks on right-aligned positions, and skip the key tiles
+outside the masks. :func:`flash_attention` takes the plain version for
+CPU tensors and launches a kernel for CUDA tensors; there is no other
+path.
+
+TMA reads a tensor where it lies only if its base address and outer
+strides are multiples of 16 bytes; :func:`kernel_operand` decides, per
+tensor, whether it is passed through or copied to a contiguous tensor
+first, so every bf16 shape still reaches the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from . import ref
 from .build import CudaKernel
 
-__all__ = ["KERNEL", "flash_attention"]
+__all__ = ["KERNEL", "HEAD_DIMS", "flash_attention", "kernel_info",
+           "kernel_operand", "tma_ready"]
 
 _STRIDES = ctypes.c_longlong * 3
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -27,18 +37,57 @@ _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
          ctypes.c_void_p)
+_INFO_ARGS = (ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+              ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
 _FN = {torch.float32: "flash_attention_f32",
        torch.bfloat16: "flash_attention_bf16"}
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 64, 128)
+#: TMA's alignment of a tensor's base address and strides, in bytes
+TMA_ALIGN = 16
+#: how the bf16 kernel feeds P to the P·V product: two bf16 halves of the
+#: f32 probabilities, hi = bf16(P) and lo = bf16(P - hi), into one f32
+#: accumulator (``csrc/flash_attention.cu``)
+PV_VARIANT = "P split into bf16 hi + lo, two wgmma per k16 step"
 
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu",
-                    {name: _ARGS for name in _FN.values()},
+                    {**{name: _ARGS for name in _FN.values()},
+                     "flash_attention_bf16_info": _INFO_ARGS},
                     replaces="src/repro/kernels/flash_attention.py:88")
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` (``[B,H,S,D]``) where it lies: the last
+    axis contiguous, and the base address and the stride of every other
+    axis longer than 1 a positive multiple of 16 bytes."""
+    es = t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % TMA_ALIGN == 0 and all(
+        n == 1 or (st > 0 and st * es % TMA_ALIGN == 0)
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel of its dtype reads it: the tensor itself where
+    it can (bf16: :func:`tma_ready`; f32: last axis contiguous), else a
+    contiguous copy, which always can."""
+    ok = tma_ready(t) if t.dtype == torch.bfloat16 else t.stride(-1) == 1
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _strides(t: torch.Tensor) -> "ctypes.Array":
     return _STRIDES(*t.stride()[:3])
+
+
+def kernel_info(d: int) -> Dict[str, object]:
+    """The bf16 kernel for head dim ``d`` as compiled: registers a thread,
+    local (spill) bytes a thread, dynamic shared memory a block, and how P
+    enters the P·V product. Builds the library; launches nothing."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    KERNEL.query("flash_attention_bf16_info", d, ctypes.byref(regs),
+                 ctypes.byref(local), ctypes.byref(smem))
+    return {"head_dim": d, "registers": regs.value,
+            "spill_bytes": local.value, "smem_bytes": smem.value,
+            "pv": PV_VARIANT}
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
@@ -50,7 +99,7 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"device, got {q.device}, {k.device}, {v.device}")
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (kernel_operand(t) for t in (q, k, v))
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     if out.numel():
         KERNEL.launch(_FN[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -23,7 +23,9 @@ from repro_torch.examples.mandelbrot_offload import run as run_offload
 from repro_torch.indexing import (build_wah_index, build_wah_index_numpy,
                                   wah_index_pipeline_actors)
 from repro_torch.kernels import KERNELS, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
+                                                 kernel_info, kernel_operand,
+                                                 tma_ready)
 from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.radix_sort import radix_pass
 from repro_torch.kernels.stream_compact import local_compact
@@ -216,6 +218,12 @@ def test_mandelbrot_kernel_is_bit_exact(cuda_device, height, width,
     (1, 2, 2, 128, 256, 64, True, 100),        # local window
     (1, 2, 2, 200, 70, 128, True, 16),         # Sq > Skv: blind rows
     (2, 4, 2, 33, 45, 16, True, None),         # ragged tiles
+    (1, 2, 2, 300, 300, 128, True, None),      # Skv no multiple of 128
+    (1, 2, 1, 100, 333, 64, True, None),       # ragged, Skv > Sq, MQA
+    (1, 2, 2, 300, 130, 64, True, None),       # Sq > Skv, no window
+    (1, 2, 2, 520, 520, 128, True, 200),       # window across tile edges
+    (2, 4, 2, 384, 384, 128, True, None),      # GQA 2, three query tiles
+    (1, 2, 1, 256, 256, 16, True, None),       # D = 16, two query tiles
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)])
@@ -246,6 +254,54 @@ def test_flash_attention_reads_strided_projections(cuda_device):
     torch.testing.assert_close(flash_attention(q, k, k),
                                ref.flash_attention(q, k, k),
                                rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_reads_strided_bf16_projections(cuda_device):
+    """The bf16 kernel reads the model's [B,S,H,D] views where they lie,
+    through its TMA tensor maps, without a copy."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(2, 300, 16, 128, generator=g, device=cuda_device)
+    kv = torch.randn(2, 300, 8, 128, generator=g, device=cuda_device)
+    q, k = x.bfloat16().transpose(1, 2), kv.bfloat16().transpose(1, 2)
+    v = (kv * 0.5).bfloat16().transpose(1, 2)
+    assert all(kernel_operand(t) is t for t in (q, k, v))
+    before = _launches()["flash_attention"]
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v).float(),
+                               rtol=3e-2, atol=3e-2)
+    assert _launches()["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("layout", ["odd_row_stride", "odd_base"])
+def test_flash_attention_copies_what_tma_cannot_read(cuda_device, layout):
+    """A bf16 tensor whose base or strides are off TMA's 16 bytes is copied
+    contiguous and still goes through the kernel, once."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    if layout == "odd_row_stride":
+        q = torch.randn(1, 4, 200, 129, generator=g,
+                        device=cuda_device).bfloat16()[..., :128]
+    else:
+        q = torch.randn(4 * 200 * 128 + 1, generator=g,
+                        device=cuda_device).bfloat16()[1:].view(1, 4, 200, 128)
+    k = torch.randn(1, 2, 200, 128, generator=g, device=cuda_device).bfloat16()
+    assert not tma_ready(q) and tma_ready(k)
+    before = _launches()["flash_attention"]
+    got = flash_attention(q, k, k, causal=True)
+    torch.cuda.synchronize()
+    assert _launches()["flash_attention"] == before + 1
+    torch.testing.assert_close(got.float(), ref.flash_attention(
+        q, k, k, causal=True).float(), rtol=3e-2, atol=3e-2)
+
+
+def test_flash_attention_bf16_kernel_info(cuda_device):
+    """The bf16 kernel compiles without spills and fits one block an SM."""
+    for d in HEAD_DIMS:
+        info = kernel_info(d)
+        assert info["spill_bytes"] == 0
+        assert 0 < info["registers"] <= 255
+        assert info["smem_bytes"] <= 232448
 
 
 def test_offload_frames_on_the_card_and_the_cpu(cuda_device):
