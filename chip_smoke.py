@@ -7,8 +7,11 @@ Builds the hand-written kernels of ``src/repro_torch/kernels/csrc`` with
 times it beside that plain version and one library call, then drives the
 port's main path through the entry points a user calls:
 
-* the ``m_mult`` kernel actor (paper Listings 1+2) at 4096x4096 f32 and
-  at the quickstart's 512x512;
+* the ``m_mult`` kernel actor (paper Listings 1+2) at 4096x4096 f32, at
+  the quickstart's 512x512 f32 and at 4096x4096 bf16 (B1's ``wgmma``
+  kernel). B1 is also held at a ragged and a misaligned shape in both
+  dtypes and timed in both beside ``torch.matmul`` (device time and host
+  time a call);
 * ``build_wah_index`` over 2**24 uint32 values of cardinality 64 (paper
   §4), bit-exact against ``impl="ref"`` on the card, decoded against
   ``np.flatnonzero`` and held against the sequential numpy builder at
@@ -27,7 +30,13 @@ port's main path through the entry points a user calls:
   against the same forward with the plain attention, and an f32 forward
   at 512 tokens. B6's bf16 kernel is also timed against SDPA at the
   prefill's own launch shape, and its registers, spills and shared memory
-  are printed.
+  are printed. B6's f32 kernel is timed against SDPA in f32 at the layer
+  shape.
+
+Every B1 and B6 kernel's registers and spill bytes are printed (none may
+spill), and ``cuobjdump -sass`` of both libraries shows which kernels run
+on the tensor cores (``HGMMA``, fed by ``UTMALDG``) and which only on the
+FMA pipes.
 
 Each main-path phase sets every kernel's launch count to 0 before it and
 reads the counts after it; a kernel of the phase that was not launched
@@ -63,9 +72,20 @@ F32_NON_FMA_OPS = F32_FLOPS / 2
 #: loop is enqueued: about 50 ms at the H100's clocks, longer than the
 #: host needs to enqueue any loop of one launch a call
 HOLD_CYCLES = 100_000_000
+#: SASS opcodes counted in each B1 and B6 kernel: tensor-core products,
+#: TMA tile loads, f32 FMAs and the pre-Hopper mma.sync
+SASS_OPS = ("HGMMA", "UTMALDG", "FFMA", "HMMA")
 
 MM_N = 4096
 QUICKSTART_N = 512
+#: B1's edge shapes: tiles ragged in M, N and K; and 4096^3 with A one
+#: element into its allocation (off 16 bytes: 4-byte copies in f32, a
+#: pitched copy before TMA in bf16)
+MM_RAGGED = (4095, 4097, 4093)
+#: B1 against its plain version: f32 is IEEE f32 on both sides and differs
+#: in summation order only; bf16 rounds an f32 result to bf16 on both
+#: sides (tests/test_kernels.py's 2e-5 and 2e-2, rel + abs)
+MM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WAH_N = 1 << 24
 WAH_CARD = 64
 WAH_CHECK_N = 1 << 17
@@ -210,17 +230,19 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 # -- the main path's phases, shared with tools/profile_main_path.py -------------
-def spawn_m_mult(system, n: int, rng):
-    """The ``m_mult`` kernel actor (paper Listings 1+2) at n x n, and two
-    f32 host matrices for it."""
+def spawn_m_mult(system, n: int, rng, dtype=torch.float32):
+    """The ``m_mult`` kernel actor (paper Listings 1+2) at n x n in
+    ``dtype``, and two host matrices for it: f32 numpy arrays, or CPU
+    tensors for bf16, which numpy lacks."""
     from repro_torch.core import In, NDRange, Out, dim_vec, kernel
     from repro_torch.kernels import ops
-    m_mult = kernel(In(torch.float32), In(torch.float32),
-                    Out(torch.float32, shape=(n, n)),
+    m_mult = kernel(In(dtype), In(dtype), Out(dtype, shape=(n, n)),
                     nd_range=NDRange(dim_vec(n, n)),
                     name="m_mult")(lambda x, y: ops.matmul(x, y))
-    return (system.spawn(m_mult), rng.random((n, n), np.float32),
-            rng.random((n, n), np.float32))
+    m1, m2 = (rng.random((n, n), np.float32) for _ in range(2))
+    if dtype != torch.float32:
+        m1, m2 = (torch.from_numpy(m).to(dtype) for m in (m1, m2))
+    return system.spawn(m_mult), m1, m2
 
 
 def wah_values(rng) -> np.ndarray:
@@ -291,6 +313,7 @@ def main() -> int:
                                                      flash_attention,
                                                      kernel_info)
     from repro_torch.kernels.mandelbrot import mandelbrot as mandelbrot_kernel
+    from repro_torch.kernels.matmul import kernel_info as matmul_kernel_info
     from repro_torch.kernels.matmul import matmul as matmul_kernel
     from repro_torch.models import Model
     from repro_torch.kernels.radix_sort import radix_pass
@@ -315,6 +338,26 @@ def main() -> int:
             f"P.V: {info['pv']}")
         check(info["spill_bytes"] == 0,
               f"flash_attention bf16 kernel (head dim {d}) spills")
+    mm_info = matmul_kernel_info()
+    for info in mm_info:
+        log(f"matmul kernel {info['kernel']}: {info['registers']} registers "
+            f"a thread, {info['spill_bytes']} spill bytes, "
+            f"{info['smem_bytes']} bytes of shared memory a block")
+        check(info["spill_bytes"] == 0, f"matmul kernel {info['kernel']} "
+              "spills")
+    sass = {}
+    for kern in (MATMUL, FLASH_ATTENTION):
+        sass[kern.name] = {}
+        for fn, counts in kern.sass_opcodes().items():
+            sass[kern.name][fn] = {op: counts[op] for op in SASS_OPS}
+            log(f"sass {kern.name} {fn}: {sass[kern.name][fn]}")
+            tensor = counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+            if "hgemm" in fn or "flash_attention_tc" in fn:
+                check(tensor, f"{fn} has no HGMMA fed by UTMALDG")
+            else:
+                check(counts["FFMA"] > 0 and not (counts["HGMMA"] or
+                                                  counts["HMMA"]),
+                      f"{fn} is not FFMA-only math")
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -323,27 +366,69 @@ def main() -> int:
     # -- per-kernel phase: each kernel against its plain version ---------------
     a = torch.from_numpy(rng.random((MM_N, MM_N), np.float32)).to(dev)
     b = torch.from_numpy(rng.random((MM_N, MM_N), np.float32)).to(dev)
-    got, want = matmul_kernel(a, b), ref.matmul(a, b)
-    check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
-          "matmul f32 kernel disagrees with the plain version beyond 2e-5")
-    err = max_abs_err(got, want)
-    ab, bb = a.bfloat16(), b.bfloat16()
-    got_b, want_b = matmul_kernel(ab, bb), ref.matmul(ab, bb)
-    check(torch.allclose(got_b.float(), want_b.float(), rtol=2e-2, atol=2e-2),
-          "matmul bf16 kernel disagrees with the plain version beyond 2e-2")
-    log(f"matmul {MM_N}^3: f32 max_abs_err {err} (tol 2e-5 rel+abs), bf16 "
-        f"max_abs_err {max_abs_err(got_b.float(), want_b.float())} "
-        "(tol 2e-2 rel+abs)")
-    flops = 2.0 * MM_N ** 3
+    mm = {}
+    for x, y in ((a, b), (a.bfloat16(), b.bfloat16())):
+        dt, tol = x.dtype, MM_TOL[x.dtype]
+        got, want = matmul_kernel(x, y), ref.matmul(x, y)
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"matmul {dt} kernel disagrees with the plain version beyond "
+              f"{tol}")
+        peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
+        mm[dt] = dict(
+            max_abs_err=max_abs_err(got.float(), want.float()),
+            ms=cuda_ms(lambda: matmul_kernel(x, y), 10),
+            plain_ms=cuda_ms(lambda: ref.matmul(x, y), 10),
+            bound_ms=max(bytes_ms(3 * MM_N * MM_N * x.element_size()),
+                         ops_ms(2.0 * MM_N ** 3, peak)),
+            library_ms=cuda_ms(lambda: torch.matmul(x, y), 10),
+            host_us=host_us(lambda: matmul_kernel(x, y), 20),
+            library_host_us=host_us(lambda: torch.matmul(x, y), 20))
+        r = mm[dt]
+        log(f"matmul {dt} {MM_N}^3: kernel {r['ms']:.4f} ms, torch.matmul "
+            f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), "
+            f"bound {r['bound_ms']:.4f} ms; host {r['host_us']:.1f} us a "
+            f"call, torch.matmul {r['library_host_us']:.1f} us; max_abs_err "
+            f"{r['max_abs_err']} (tol {tol} rel+abs)")
+        del got, want
+    # ragged tiles in M, N and K; an operand 4 (2) bytes off 16
+    edges = []
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m_r, k_r, n_r = MM_RAGGED
+    for dt in (torch.float32, torch.bfloat16):
+        tol = MM_TOL[dt]
+        flat = torch.rand(MM_N * MM_N + 1, generator=gen, device=dev).to(dt)
+        for tag, x, y in (
+                (f"{m_r}x{k_r}x{n_r}",
+                 torch.rand(m_r, k_r, generator=gen, device=dev).to(dt),
+                 torch.rand(k_r, n_r, generator=gen, device=dev).to(dt)),
+                (f"{MM_N}^3, A one element off its allocation",
+                 flat[1:].view(MM_N, MM_N), b.to(dt))):
+            before = MATMUL.launches
+            got, want = matmul_kernel(x, y), ref.matmul(x, y)
+            torch.cuda.synchronize()
+            check(MATMUL.launches == before + 1,
+                  f"matmul {dt} {tag}: not one launch")
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"matmul {dt} {tag} disagrees beyond {tol}")
+            edges.append(dict(dtype=str(dt), shape=tag,
+                              max_abs_err=max_abs_err(got.float(),
+                                                      want.float())))
+            log(f"matmul {dt} {tag}: max_abs_err {edges[-1]['max_abs_err']} "
+                f"(tol {tol} rel+abs)")
+            del got, want
+        del flat
+    f32 = mm[torch.float32]
     rows["matmul"] = dict(
-        kernel=MATMUL, max_abs_err=err,
-        ms=cuda_ms(lambda: matmul_kernel(a, b), 10),
-        plain_ms=cuda_ms(lambda: ref.matmul(a, b), 10),
-        bound_ms=max(bytes_ms(3 * MM_N * MM_N * 4), flops / F32_FLOPS * 1e3),
-        bound_by="operations",
-        library_ms=cuda_ms(lambda: torch.matmul(a, b), 10),
-        library="torch.matmul f32 (TF32 off)")
-    del a, b, ab, bb, got, want, got_b, want_b
+        kernel=MATMUL, max_abs_err=f32["max_abs_err"], ms=f32["ms"],
+        plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        bound_by="operations", library_ms=f32["library_ms"],
+        library="torch.matmul f32 (TF32 off)", host_us=f32["host_us"],
+        library_host_us=f32["library_host_us"],
+        bf16=dict(mm[torch.bfloat16], bound_by="operations",
+                  library="torch.matmul bf16"),
+        edges=edges, instantiations=mm_info)
+    del a, b, x, y
 
     keys = torch.from_numpy(
         rng.integers(0, WAH_CARD, WAH_N).astype(np.uint32)).to(dev)
@@ -561,6 +646,23 @@ def main() -> int:
     log(f"flash_attention bf16: {prefill_shape['host_us']:.1f} us of host "
         "work a call (wrapper, custom op, tensor maps, launch); SDPA "
         f"{prefill_shape['library_host_us']:.1f} us")
+    # the f32 (SIMT) kernel at the layer shape, against SDPA in f32 with
+    # TF32 off; its bound is the f32 SIMT peak
+    q, k, v = attention_inputs(
+        FA_LAYER, torch.float32, torch.Generator(device=dev).manual_seed(0),
+        dev)
+    b_, h_, s_, d_ = q.shape
+    f32_row = dict(
+        shape=list(FA_LAYER), max_abs_err=fa_err[f"f32 causal S={FA_S}"],
+        ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 5),
+        bound_ms=max(bytes_ms(4 * (2 * q.numel() + k.numel() + v.numel())),
+                     ops_ms(4.0 * b_ * h_ * s_ * s_ * d_ / 2, F32_FLOPS)),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v), 5),
+        library="F.scaled_dot_product_attention, f32 (TF32 off)")
+    rows["flash_attention"]["f32"] = f32_row
+    log(f"flash_attention f32 causal {FA_B}x{FA_H}({FA_HKV})x{FA_S}^2x{FA_D}:"
+        f" kernel {f32_row['ms']:.4f} ms, SDPA {f32_row['library_ms']:.4f} ms"
+        f", bound {f32_row['bound_ms']:.4f} ms (f32 SIMT peak)")
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -586,17 +688,21 @@ def main() -> int:
     with ActorSystem(name="chip_smoke") as system:
         check(system.opencl_manager().find_device().torch_device == dev,
               "the default device is not cuda:0")
-        for n in (QUICKSTART_N, MM_N):
-            worker, m1, m2 = spawn_m_mult(system, n, rng)
+        for n, dt in ((QUICKSTART_N, torch.float32), (MM_N, torch.float32),
+                      (MM_N, torch.bfloat16)):
+            worker, m1, m2 = spawn_m_mult(system, n, rng, dt)
             worker.ask(m1, m2)      # first call: build and warm up
-            result = run_phase(f"m_mult {n}x{n}", ["matmul"],
+            result = run_phase(f"m_mult {n}x{n} {dt}", ["matmul"],
                                lambda: worker.ask(m1, m2))
-            want = ref.matmul(torch.from_numpy(m1).to(dev),
-                              torch.from_numpy(m2).to(dev)).cpu().numpy()
+            # bf16 results come back as f32 numpy arrays (numpy has no bf16)
+            want = ref.matmul(torch.as_tensor(m1).to(dev),
+                              torch.as_tensor(m2).to(dev)).float().cpu().numpy()
             check(result.shape == (n, n) and np.isfinite(result).all(),
                   "m_mult result is not finite or has the wrong shape")
-            np.testing.assert_allclose(result, want, rtol=2e-5, atol=2e-5)
-            log(f"m_mult {n}x{n} ok: |result|_F = {np.linalg.norm(result):.1f}")
+            np.testing.assert_allclose(result, want, rtol=MM_TOL[dt],
+                                       atol=MM_TOL[dt])
+            log(f"m_mult {n}x{n} {dt} ok: |result|_F = "
+                f"{np.linalg.norm(result):.1f}")
 
         values_np = wah_values(rng)
         values = torch.from_numpy(values_np).to(dev)
@@ -752,9 +858,12 @@ def main() -> int:
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                  "library": row["library"], "card": card}
+        if kname in sass:
+            entry["sass"] = sass[kname]
         if "op_ms" in row:
             entry["radix_sort_ms"] = row["op_ms"]
-        for extra in ("prefill_shape", "bf16_sweep"):
+        for extra in ("host_us", "library_host_us", "bf16", "f32", "edges",
+                      "instantiations", "prefill_shape", "bf16_sweep"):
             if extra in row:
                 entry[extra] = row[extra]
         entries.append(entry)

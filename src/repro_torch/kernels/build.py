@@ -4,24 +4,27 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface and loaded with ``ctypes``;
 pointers and the stream travel as ``c_void_p``. A library is built at
 first use into ``kernels/build/`` (listed in ``.gitignore``) under a name
-that hashes its sources and flags, so an edited source is rebuilt and an
-unchanged one is reused. :func:`build_all` starts one ``nvcc`` per source
-at once and waits for all of them.
+that hashes its source, every shared header ``csrc/*.cuh`` and the flags,
+so an edited source or header is rebuilt and an unchanged one is reused.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all
+of them.
 
 Nothing here runs at import time: the CPU tests import every module, and
 a machine without ``nvcc`` only fails when a kernel is launched.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Counter, Dict, Iterable, Optional, Sequence, Tuple
 
 __all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC_DIR"]
 
@@ -31,15 +34,25 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the repro_torch kernels")
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", name)):
+        return os.path.join(CUDA_HOME, "bin", name)
+    raise RuntimeError(f"{name} not found: the CUDA toolkit is needed to "
+                       "build the repro_torch kernels")
+
+
+def _nvcc() -> str:
+    return _cuda_tool("nvcc")
+
+
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+#: an instruction line: /*offset*/ [@predicate] OPCODE[.modifiers] ...
+_SASS_OPCODE = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 
 
 class CudaKernel:
@@ -68,7 +81,7 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         digest = hashlib.sha256()
-        for part in (self.source_path, CSRC_DIR / "common.cuh"):
+        for part in (self.source_path, *sorted(CSRC_DIR.glob("*.cuh"))):
             digest.update(part.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source_path.stem}-{digest.hexdigest()[:16]}.so"
@@ -131,6 +144,28 @@ class CudaKernel:
         """Call an exported function that launches nothing (an attribute
         query); raise on a CUDA error. The launch count does not move."""
         self._call(fn_name, *args)
+
+    def sass_opcodes(self) -> Dict[str, Counter]:
+        """Opcodes of each kernel in the built library, as ``cuobjdump
+        -sass`` disassembles it: mangled kernel name -> opcode -> count
+        (modifiers dropped: ``HGMMA.64x128x16.F32.BF16`` counts as
+        ``HGMMA``). Builds the library; launches nothing."""
+        self._load()
+        sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
+                               str(self.library_path())],
+                              capture_output=True, text=True, check=True).stdout
+        out: Dict[str, Counter] = {}
+        fn = None
+        for line in sass.splitlines():
+            head = _SASS_FUNCTION.search(line)
+            if head:
+                fn = head.group(1)
+                out[fn] = collections.Counter()
+                continue
+            op = _SASS_OPCODE.search(line)
+            if op and fn is not None:
+                out[fn][op.group(1)] += 1
+        return out
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:

@@ -26,7 +26,11 @@ from repro_torch.kernels import KERNELS, ops, ref
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  kernel_info, kernel_operand,
                                                  tma_ready)
+from repro_torch.kernels.matmul import INSTANTIATIONS
+from repro_torch.kernels.matmul import KERNEL as MATMUL_KERNEL
+from repro_torch.kernels.matmul import kernel_info as matmul_kernel_info
 from repro_torch.kernels.matmul import matmul
+from repro_torch.kernels.matmul import tma_ready as matmul_tma_ready
 from repro_torch.kernels.radix_sort import radix_pass
 from repro_torch.kernels.stream_compact import local_compact
 from repro_torch.kernels.wah import wah_interleave
@@ -84,17 +88,75 @@ def test_integer_kernel_is_bit_exact(cuda_device, name, n):
     assert _launches()[name] > before[name]
 
 
-@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (300, 200, 170),
-                                   (1, 1000, 3)])
+def _offset_slice(rows, cols, generator, device, dtype):
+    """A ``rows x cols`` matrix whose base lies one element past its
+    allocation's start: off 16 bytes for both kernels' wide copies."""
+    flat = torch.rand(rows * cols + 1, generator=generator).to(device, dtype)
+    return flat[1:].view(rows, cols)
+
+
+@pytest.mark.parametrize("m,k,n,offset", [
+    (128, 128, 128, False), (300, 200, 170, False), (1, 1000, 3, False),
+    (129, 65, 255, False), (4095, 64, 4097, False),    # tile-ragged
+    (256, 1000, 256, False),                           # K % BK != 0
+    (1, 512, 300, False), (300, 512, 1, False),        # M = 1, N = 1
+    (300, 200, 170, True), (257, 384, 129, True),      # A offset by 1
+    (512, 4096, 512, False),                           # long K sums
+])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-def test_matmul_within_tolerance(cuda_device, m, k, n, dtype, tol):
+def test_matmul_within_tolerance(cuda_device, m, k, n, offset, dtype, tol):
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(m * n)
-    a = torch.rand(m, k, generator=g).to(cuda_device, dtype)
+    a = (_offset_slice(m, k, g, cuda_device, dtype) if offset else
+         torch.rand(m, k, generator=g).to(cuda_device, dtype))
     b = torch.rand(k, n, generator=g).to(cuda_device, dtype)
-    torch.testing.assert_close(matmul(a, b).float(), ref.matmul(a, b).float(),
+    before = _launches()["matmul"]
+    got = matmul(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert _launches()["matmul"] == before + 1
+    torch.testing.assert_close(got.float(), ref.matmul(a, b).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["offset_base", "odd_pitch", "transposed"])
+def test_matmul_bf16_copies_what_tma_cannot_read(cuda_device, layout):
+    """A bf16 operand off TMA's 16-byte rules is copied to a 16-byte row
+    pitch and still goes through the kernel, once."""
+    g = torch.Generator().manual_seed(8)
+    b = torch.rand(384, 200, generator=g).to(cuda_device, torch.bfloat16)
+    if layout == "offset_base":
+        a = _offset_slice(300, 384, g, cuda_device, torch.bfloat16)
+    elif layout == "odd_pitch":
+        a = torch.rand(300, 385, generator=g).to(cuda_device,
+                                                 torch.bfloat16)[:, :384]
+    else:
+        a = torch.rand(384, 300, generator=g).to(cuda_device,
+                                                 torch.bfloat16).t()
+    assert not matmul_tma_ready(a) and matmul_tma_ready(b)
+    before = _launches()["matmul"]
+    got = matmul(a, b)
+    torch.cuda.synchronize()
+    assert _launches()["matmul"] == before + 1
+    torch.testing.assert_close(got.float(), ref.matmul(a, b).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_matmul_kernels_compile_without_spills(cuda_device):
+    """Every B1 instantiation fits its registers; the bf16 kernel runs on
+    the tensor cores fed by TMA, the f32 kernels on the FMA pipes."""
+    infos = matmul_kernel_info()
+    assert [i["kernel"] for i in infos] == list(INSTANTIATIONS)
+    for info in infos:
+        assert info["spill_bytes"] == 0, info
+        assert 0 < info["registers"] <= 255
+        assert info["smem_bytes"] <= 232448
+    for fn, ops_ in MATMUL_KERNEL.sass_opcodes().items():
+        if "hgemm" in fn:
+            assert ops_["HGMMA"] > 0 and ops_["UTMALDG"] > 0
+        elif "sgemm" in fn:
+            assert ops_["FFMA"] > 0 and not (ops_["HGMMA"] or ops_["HMMA"])
 
 
 def test_ops_sort_and_compact_match_plain(cuda_device):

@@ -97,8 +97,10 @@ def main() -> int:
     with ActorSystem(name="profile") as system:
         dev = system.opencl_manager().find_device().torch_device
         n = smoke.MM_N
-        worker, m1, m2 = smoke.spawn_m_mult(system, n, rng)
-        rows.append(_phase(f"m_mult {n}x{n}", lambda: worker.ask(m1, m2)))
+        for dt in (torch.float32, torch.bfloat16):
+            worker, m1, m2 = smoke.spawn_m_mult(system, n, rng, dt)
+            rows.append(_phase(f"m_mult {n}x{n} {dt}",
+                               lambda: worker.ask(m1, m2)))
 
         values = torch.from_numpy(smoke.wah_values(rng)).to(dev)
         rows.append(_phase("build_wah_index n=2^24",
