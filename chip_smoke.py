@@ -33,20 +33,28 @@ port's main path through the entry points a user calls:
   are printed. B6's f32 kernel is timed against SDPA in f32 at the layer
   shape.
 
-Every B1 and B6 kernel's registers and spill bytes are printed (none may
-spill), and ``cuobjdump -sass`` of both libraries shows which kernels run
-on the tensor cores (``HGMMA``, fed by ``UTMALDG``) and which only on the
-FMA pipes.
+Every B1, B3 and B6 kernel's registers and spill bytes are printed (none
+may spill), and ``cuobjdump -sass`` of the B1 and B6 libraries shows which
+kernels run on the tensor cores (``HGMMA``, fed by ``UTMALDG``) and which
+only on the FMA pipes. B3's library has three entries: ``radix_pass`` (the
+TPU kernel's contract, checked at 2**24 but off the main path), and the
+sort's ``radix_histogram`` and ``radix_onesweep``, held against their
+plain versions at 2**24 on random keys at every shift, on the WAH input's
+keys and on equal keys, and timed with ``ops.radix_sort`` beside
+``torch.sort(stable=True)`` of the keys as int64 and as int32.
 
-Each main-path phase sets every kernel's launch count to 0 before it and
-reads the counts after it; a kernel of the phase that was not launched
-fails the run. Any failure exits non-zero. The last two lines are a JSON
-object with one entry per kernel and the JSON result line.
+Each main-path phase sets every kernel's launch counts to 0 before it and
+reads them after it; a kernel of the phase that was not launched fails
+the run, and so does a ``build_wah_index`` that is not one
+``radix_histogram`` and four ``radix_onesweep`` launches. Any failure
+exits non-zero. The last two lines are a JSON object with one entry per
+kernel and the JSON result line.
 
 Without a CUDA device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -89,6 +97,8 @@ MM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WAH_N = 1 << 24
 WAH_CARD = 64
 WAH_CHECK_N = 1 << 17
+#: the all-equal keys of B3's check: every pass sees one digit
+SORT_EQUAL_KEY = 0x9E3779B9
 PIPE_K = 1 << 23
 #: benchmarks/bench_offload.py's view, at a 1080p frame
 MANDEL_W, MANDEL_H, MANDEL_IT = 1920, 1080, 500
@@ -316,7 +326,10 @@ def main() -> int:
     from repro_torch.kernels.matmul import kernel_info as matmul_kernel_info
     from repro_torch.kernels.matmul import matmul as matmul_kernel
     from repro_torch.models import Model
-    from repro_torch.kernels.radix_sort import radix_pass
+    from repro_torch.kernels.radix_sort import (OnesweepScratch,
+                                                radix_histogram,
+                                                radix_onesweep, radix_pass)
+    from repro_torch.kernels.radix_sort import kernel_info as radix_kernel_info
     from repro_torch.kernels.stream_compact import local_compact
     from repro_torch.kernels.wah import wah_interleave
 
@@ -430,6 +443,8 @@ def main() -> int:
         edges=edges, instantiations=mm_info)
     del a, b, x, y
 
+    # B3: radix_pass (the TPU kernel's contract, off the main path), then
+    # the sort's radix_histogram and radix_onesweep
     keys = torch.from_numpy(
         rng.integers(0, WAH_CARD, WAH_N).astype(np.uint32)).to(dev)
     hist, rank = radix_pass(keys)
@@ -443,28 +458,93 @@ def main() -> int:
         h2, r2 = ref.radix_pass(rand_keys, shift=shift)
         check(torch.equal(h1, h2) and torch.equal(r1, r2),
               f"radix_pass kernel disagrees at shift {shift}")
+    radix_pass_ms = cuda_ms(lambda: radix_pass(keys), 20)
+    del hist, rank, hist_p, rank_p, h1, r1, h2, r2
+    radix_info = radix_kernel_info()
+    for info in radix_info:
+        log(f"radix kernel {info['kernel']}: {info['registers']} registers a "
+            f"thread, {info['spill_bytes']} spill bytes, {info['smem_bytes']} "
+            "bytes of shared memory a block")
+        check(info["spill_bytes"] == 0, f"{info['kernel']} spills")
     pos = torch.arange(WAH_N, dtype=torch.int32, device=dev)
+    equal_keys = torch.full((WAH_N,), SORT_EQUAL_KEY, dtype=torch.int64,
+                            device=dev)
+    sort_err = 0.0
+    for tag, k_in in (("random", rand_keys), (f"cardinality {WAH_CARD}", keys),
+                      ("all equal", ref.i64_to_u32(equal_keys))):
+        h = radix_histogram(k_in)
+        h_p = ref.radix_histogram(k_in, 8)
+        sort_err = max(sort_err, max_abs_err(h, h_p))
+        check(torch.equal(h, h_p),
+              f"radix_histogram disagrees with the plain version ({tag})")
+        for p in range(4):
+            got = radix_onesweep(k_in, pos, h[p], 8, 8 * p)
+            want = ref.radix_onesweep(k_in, pos, h[p], 8, 8 * p)
+            sort_err = max(sort_err, max_abs_err(got[0], want[0]),
+                           max_abs_err(got[1], want[1]))
+            check(words_equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"radix_onesweep disagrees with the plain version ({tag}, "
+                  f"shift {8 * p})")
+        log(f"radix_histogram and radix_onesweep n=2^24 {tag} keys: bit-exact "
+            "at shifts 0, 8, 16, 24")
+        del got, want
     sorted_k, perm = ops.radix_sort(rand_keys, pos)
     wide_keys = ref.u32_to_i64(rand_keys)
+    narrow_keys = rand_keys.view(torch.int32)
     lib_k, lib_perm = torch.sort(wide_keys, stable=True)
-    check(torch.equal(sorted_k.view(torch.int32).long() & 0xFFFFFFFF, lib_k)
+    check(torch.equal(ref.u32_to_i64(sorted_k), lib_k)
           and torch.equal(perm.long(), lib_perm),
           "ops.radix_sort disagrees with torch.sort(stable=True)")
-    nb = WAH_N // 256
-    radix_sort_ms = cuda_ms(lambda: ops.radix_sort(rand_keys, pos), 3)
+    del sorted_k, perm, lib_k, lib_perm
+    hist = radix_histogram(rand_keys)
+    wah_hist = radix_histogram(keys)
+
+    def onesweep_ms(k_in, counts, shift, reps):
+        """One onesweep pass, each call on scratch zeroed beforehand."""
+        scratch = OnesweepScratch(WAH_N, 8, dev, passes=reps + 2)
+        return cuda_ms(lambda: radix_onesweep(k_in, pos, counts, 8, shift,
+                                              scratch=scratch), reps)
+
     rows["radix_pass"] = dict(
-        kernel=RADIX_PASS, max_abs_err=max_abs_err(rank, rank_p),
-        ms=cuda_ms(lambda: radix_pass(keys), 20),
-        plain_ms=cuda_ms(lambda: ref.radix_pass(keys), 3),
-        bound_ms=bytes_ms(WAH_N * 4 + nb * 256 * 4 + nb * 256 * 4),
-        bound_by="bytes",
-        library_ms=cuda_ms(lambda: torch.sort(wide_keys, stable=True), 3),
+        kernel=RADIX_PASS, max_abs_err=sort_err,
+        ms=onesweep_ms(rand_keys, hist[0], 0, 20),
+        plain_ms=cuda_ms(lambda: ref.radix_onesweep(rand_keys, pos, hist[0],
+                                                    8, 0), 3),
+        bound_ms=bytes_ms(WAH_N * 16), bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.sort(wide_keys, stable=True), 10),
         library="torch.sort(stable=True) of the keys as int64 (values and "
-                "permutation), against ops.radix_sort",
-        op_ms=radix_sort_ms)
-    log(f"radix_pass n=2^24: bit-exact; ops.radix_sort (4 passes + scatter) "
-        f"{radix_sort_ms:.3f} ms")
-    del hist, rank, hist_p, rank_p, sorted_k, perm, lib_k, lib_perm, wide_keys
+                "permutation), against radix_sort_ms",
+        onesweep_one_digit_ms=onesweep_ms(keys, wah_hist[1], 8, 20),
+        histogram_ms=cuda_ms(lambda: radix_histogram(rand_keys), 20),
+        histogram_plain_ms=cuda_ms(lambda: ref.radix_histogram(rand_keys, 8),
+                                   3),
+        histogram_bound_ms=bytes_ms(WAH_N * 4),
+        radix_sort_ms=cuda_ms(lambda: ops.radix_sort(rand_keys, pos), 10),
+        radix_sort_plain_ms=cuda_ms(lambda: ops.radix_sort(
+            rand_keys, pos, impl="ref"), 3),
+        # the sort's own bytes (keys and payload in and out), and the bytes
+        # of this design: the histogram's read and 4 passes of 16 B a key
+        # (the int32 payload rides through the passes)
+        radix_sort_bound_ms=bytes_ms(WAH_N * 16),
+        radix_sort_design_bound_ms=bytes_ms(WAH_N * (4 + 4 * 16)),
+        library_int32_ms=cuda_ms(lambda: torch.sort(narrow_keys, stable=True),
+                                 10),
+        host_us=host_us(lambda: ops.radix_sort(rand_keys, pos), 10),
+        library_host_us=host_us(lambda: torch.sort(wide_keys, stable=True),
+                                10),
+        radix_pass_ms=radix_pass_ms, instantiations=radix_info)
+    r = rows["radix_pass"]
+    r["onesweep_ms"] = r["ms"]
+    log(f"radix sort n=2^24: onesweep pass {r['ms']:.4f} ms (one-digit pass "
+        f"{r['onesweep_one_digit_ms']:.4f}; bound {r['bound_ms']:.4f}), "
+        f"histogram {r['histogram_ms']:.4f} ms (bound "
+        f"{r['histogram_bound_ms']:.4f}), ops.radix_sort "
+        f"{r['radix_sort_ms']:.4f} ms (bound {r['radix_sort_bound_ms']:.4f}, "
+        f"this design's {r['radix_sort_design_bound_ms']:.4f}); torch.sort "
+        f"int64 {r['library_ms']:.4f} ms, int32 {r['library_int32_ms']:.4f} "
+        f"ms; host {r['host_us']:.1f} us a sort, torch.sort "
+        f"{r['library_host_us']:.1f} us; radix_pass {radix_pass_ms:.4f} ms")
+    del wide_keys, narrow_keys, equal_keys, hist, wah_hist, h, h_p
 
     words = torch.where(torch.from_numpy(rng.random(2 * WAH_N) < 0.5).to(dev),
                         torch.cat([rand_keys, rand_keys]).view(torch.int32),
@@ -668,20 +748,30 @@ def main() -> int:
 
     # -- main path --------------------------------------------------------------
     launches = {k.name: 0 for k in KERNELS}
+    function_launches = {k.name: collections.Counter() for k in KERNELS}
 
-    def run_phase(name, needs, body):
+    def run_phase(name, needs, body, functions=None):
+        """Run ``body`` as one main-path phase: every kernel in ``needs``
+        must launch, and each ``functions`` entry (exported function ->
+        count) must launch exactly that often."""
         for k in KERNELS:
-            k.launches = 0
+            k.reset_launches()
         t0 = time.perf_counter()
         result = body()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k.name: k.launches for k in KERNELS}
+        by_fn = collections.Counter()
         for k in KERNELS:
             launches[k.name] += k.launches
+            function_launches[k.name].update(k.function_launches)
+            by_fn.update(k.function_launches)
         for kname in needs:
             check(counts[kname] > 0,
                   f"phase {name}: kernel {kname} was not launched")
+        for fn, want in (functions or {}).items():
+            check(by_fn[fn] == want, f"phase {name}: {fn} launched "
+                  f"{by_fn[fn]} times, not {want}")
         log(f"phase {name}: wall {wall * 1e3:.3f} ms, launches {counts}")
         return result
 
@@ -709,7 +799,9 @@ def main() -> int:
         build_wah_index(values, WAH_CARD)       # warm up
         idx = run_phase("build_wah_index n=2^24",
                         ["radix_pass", "wah_interleave", "local_compact"],
-                        lambda: build_wah_index(values, WAH_CARD))
+                        lambda: build_wah_index(values, WAH_CARD),
+                        {"radix_histogram": 1, "radix_onesweep": 4,
+                         "radix_pass": 0})
         idx_ref = build_wah_index(values, WAH_CARD, impl="ref")
         for got_t, want_t, what in zip(idx, idx_ref,
                                        ("words", "n_words", "starts", "counts")):
@@ -849,23 +941,15 @@ def main() -> int:
 
     entries = []
     for kname, row in rows.items():
-        k = row["kernel"]
+        k = row.pop("kernel")
         check(launches[kname] > 0, f"kernel {kname} not launched on the main path")
         entry = {"name": kname, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{k.source}",
                  "replaces": k.replaces, "launches": launches[kname],
-                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                 "library": row["library"], "card": card}
+                 "function_launches": dict(function_launches[kname]),
+                 "card": card, **row}
         if kname in sass:
             entry["sass"] = sass[kname]
-        if "op_ms" in row:
-            entry["radix_sort_ms"] = row["op_ms"]
-        for extra in ("host_us", "library_host_us", "bf16", "f32", "edges",
-                      "instantiations", "prefill_shape", "bf16_sweep"):
-            if extra in row:
-                entry[extra] = row[extra]
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -60,8 +60,10 @@ class CudaKernel:
     replaces, its exported C functions, and how often it was launched.
 
     ``launches`` is a plain integer that :meth:`launch` raises by one for
-    every kernel launch; a run resets it to 0 and reads it afterwards to
-    show that its path went through the kernel.
+    every kernel launch, and ``function_launches`` counts the same launches
+    by exported function (a library may export several); a run resets both
+    (:meth:`reset_launches`) and reads them afterwards to show that its
+    path went through the kernel.
     """
 
     def __init__(self, name: str, source: str,
@@ -71,6 +73,7 @@ class CudaKernel:
         self.functions = dict(functions)
         self.replaces = replaces
         self.launches = 0
+        self.function_launches: Counter = collections.Counter()
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
@@ -139,6 +142,13 @@ class CudaKernel:
         self._call(fn_name, *args)
         with self._lock:
             self.launches += 1
+            self.function_launches[fn_name] += 1
+
+    def reset_launches(self) -> None:
+        """Set ``launches`` and every ``function_launches`` count to 0."""
+        with self._lock:
+            self.launches = 0
+            self.function_launches.clear()
 
     def query(self, fn_name: str, *args) -> None:
         """Call an exported function that launches nothing (an attribute

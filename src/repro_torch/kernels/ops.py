@@ -9,11 +9,11 @@ given, by default the current CUDA device (``LookupError`` without one).
 ``impl="ref"`` is the explicit choice of the whole plain version
 (:mod:`.ref`), which the tests and ``chip_smoke.py`` compare against.
 
-These operators also hold the global halves that the JAX package left to
-XLA around its Pallas kernels (``repro/kernels/ops.py:92-103`` and
-``:122-134``): the compaction gather over the per-block outputs, and the
-radix offsets and scatter of each digit pass. They stay plain PyTorch
-operators on the card, as they were plain XLA there.
+The JAX package leaves the global halves around its Pallas kernels to
+XLA (``repro/kernels/ops.py:92-103`` and ``:122-134``). The compaction
+gather over the per-block outputs stays a plain PyTorch operator here;
+the radix sort's digit offsets and scatter run inside its onesweep
+kernel.
 """
 from __future__ import annotations
 
@@ -26,8 +26,8 @@ from . import ref
 from .flash_attention import flash_attention as _flash_attention_kernel
 from .mandelbrot import mandelbrot as _mandelbrot_kernel
 from .matmul import matmul as _matmul_kernel
-from .radix_sort import radix_pass
-from .ref import _take, u32_to_i64
+from .radix_sort import OnesweepScratch, radix_histogram, radix_onesweep
+from .ref import _take
 from .stream_compact import local_compact
 from .wah import wah_interleave as _wah_interleave_kernel
 
@@ -106,38 +106,39 @@ def radix_sort(keys: torch.Tensor, values: Optional[torch.Tensor] = None, *,
                bits_per_pass: int = 8, bs: int = 256, impl: str = "auto"):
     """Stable LSD radix sort of uint32 keys (+ optional payload).
 
-    Digits wider than 8 bits take the plain sort, as in the JAX package
+    One :func:`radix_histogram` gives every pass's digit counts; each of
+    the ``32 // bits_per_pass`` passes is one :func:`radix_onesweep` of the
+    keys and an int32 payload. A 1-d payload of 32-bit words (``values``
+    of the keys' length in int32, uint32 or float32) rides through the
+    passes as it is; any other payload is gathered at the end
+    (``jnp.take(values, idx)`` in the JAX package) by an index that the
+    passes carry, and that the first pass makes from the positions. A CPU
+    tensor runs the same steps through the plain versions.
+
+    ``bs`` is accepted for the JAX signature and unused: a onesweep tile is
+    the kernel's own (``radix_sort.TILE`` keys). Digits wider than 8 bits
+    take the plain sort, as in the JAX package
     (``repro/kernels/ops.py:113``).
     """
     if _plain(impl) or bits_per_pass > 8:
         return ref.radix_sort_u32(keys, values, bits_per_pass=bits_per_pass)
     if 32 % bits_per_pass:
         raise ValueError(f"bits_per_pass={bits_per_pass} must divide 32")
-    n = keys.shape[0]
-    nbins = 1 << bits_per_pass
-    k = keys
-    idx = torch.arange(n, device=keys.device)
-    blk = idx // bs
-    for p in range(32 // bits_per_pass):
-        shift = p * bits_per_pass
-        hist, rank = radix_pass(k, bs=bs, bits=bits_per_pass, shift=shift)
-        nb = hist.shape[0]
-        # one exclusive scan over the digit-major histogram gives, for each
-        # (digit, block), the digit's global base plus that digit's count
-        # in every earlier block (a scan along the long block axis of the
-        # [nb, nbins] table would run one serial thread per bin)
-        flat = hist.t().reshape(-1).to(torch.int64)
-        offsets = torch.cumsum(flat, 0) - flat
-        digit = (u32_to_i64(k) >> shift) & (nbins - 1)
-        dest = offsets[digit * nb + blk] + rank.reshape(-1)[:n]
-        k_next = torch.empty_like(k)
-        k_next.view(torch.int32)[dest] = k.view(torch.int32)
-        idx_next = torch.empty_like(idx)
-        idx_next[dest] = idx
-        k, idx = k_next, idx_next
+    n, passes = keys.shape[0], 32 // bits_per_pass
+    hist = radix_histogram(keys, bits=bits_per_pass)
+    scratch = (None if keys.device.type == "cpu" else
+               OnesweepScratch(n, bits_per_pass, keys.device, passes))
+    carried = (values is not None and values.shape == keys.shape and
+               values.element_size() == 4)
+    k, payload = keys, (values.view(torch.int32) if carried else None)
+    for p in range(passes):
+        k, payload = radix_onesweep(k, payload, hist[p], bits_per_pass,
+                                    p * bits_per_pass, scratch=scratch)
     if values is None:
         return k
-    return k, _take(values, idx)
+    if carried:
+        return k, payload.view(values.dtype)
+    return k, _take(values, payload)
 
 
 # ----------------------------------------------------------------------------

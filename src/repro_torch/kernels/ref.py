@@ -23,7 +23,7 @@ __all__ = [
     "u32_to_i64", "i64_to_u32",
     "matmul",
     "MandelbrotView", "mandelbrot_view", "mandelbrot_rows", "mandelbrot",
-    "radix_pass", "radix_sort_u32",
+    "radix_pass", "radix_histogram", "radix_onesweep", "radix_sort_u32",
     "local_compact", "stream_compact",
     "wah_interleave",
     "flash_attention",
@@ -156,6 +156,35 @@ def radix_pass(x: torch.Tensor, *, bs: int = 256, bits: int = 8,
     rank = torch.where(digit == nbins, 0, rank)
     hist = counts.reshape(nb, nbins + 1)[:, :nbins]
     return hist.to(torch.int32), rank.reshape(nb, bs).to(torch.int32)
+
+
+def radix_histogram(keys: torch.Tensor, bits: int) -> torch.Tensor:
+    """``hist[32 // bits, 2**bits]`` int32: row ``p`` counts the keys whose
+    digit ``(key >> p * bits) & (2**bits - 1)`` is each value."""
+    k, nbins = u32_to_i64(keys), 1 << bits
+    return torch.stack([torch.bincount((k >> p * bits) & (nbins - 1),
+                                       minlength=nbins)
+                        for p in range(32 // bits)]).to(torch.int32)
+
+
+def radix_onesweep(keys: torch.Tensor, idx: Optional[torch.Tensor],
+                   digit_counts: torch.Tensor, bits: int, shift: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One stable LSD pass: ``keys`` and their int32 payload ``idx`` (each
+    key's position where ``idx`` is None) ordered by the digit
+    ``(key >> shift) & (2**bits - 1)``, equal digits in input order.
+    ``digit_counts`` must be the keys' count of each digit (the pass's row
+    of :func:`radix_histogram`): the kernel starts each digit's run at its
+    exclusive scan, where a stable sort puts it; a ValueError says when it
+    is not."""
+    digit = (u32_to_i64(keys) >> shift) & ((1 << bits) - 1)
+    if not torch.equal(torch.bincount(digit, minlength=1 << bits),
+                       digit_counts.to(torch.int64)):
+        raise ValueError("digit_counts is not the keys' digit histogram")
+    order = torch.argsort(digit, stable=True)
+    if idx is None:
+        return _take(keys, order), order.to(torch.int32)
+    return _take(keys, order), idx[order]
 
 
 def radix_sort_u32(keys: torch.Tensor, values: Optional[torch.Tensor] = None,

@@ -31,6 +31,9 @@ from repro_torch.kernels.matmul import KERNEL as MATMUL_KERNEL
 from repro_torch.kernels.matmul import kernel_info as matmul_kernel_info
 from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.matmul import tma_ready as matmul_tma_ready
+from repro_torch.kernels.radix_sort import KERNEL as RADIX_KERNEL
+from repro_torch.kernels.radix_sort import TILE, radix_histogram, radix_onesweep
+from repro_torch.kernels.radix_sort import kernel_info as radix_kernel_info
 from repro_torch.kernels.radix_sort import radix_pass
 from repro_torch.kernels.stream_compact import local_compact
 from repro_torch.kernels.wah import wah_interleave
@@ -173,14 +176,123 @@ def test_ops_sort_and_compact_match_plain(cuda_device):
 
 
 def test_cuda_tensor_never_takes_the_plain_path(cuda_device):
+    """One build_wah_index sorts once: one radix_histogram and one
+    radix_onesweep a pass; radix_pass (the TPU kernel's own contract) is
+    not on the path."""
     before = _launches()
+    by_fn = dict(RADIX_KERNEL.function_launches)
     x = _words(np.random.default_rng(2), 4096, 1.0, cuda_device)
     build_wah_index(ref.i64_to_u32(ref.u32_to_i64(x) % 16), 16)
     torch.cuda.synchronize()
     after = _launches()
-    assert after["radix_pass"] - before["radix_pass"] == 4
+    sort_launches = {fn: RADIX_KERNEL.function_launches[fn] - by_fn.get(fn, 0)
+                     for fn in ("radix_histogram", "radix_onesweep",
+                                "radix_pass")}
+    assert sort_launches == {"radix_histogram": 1, "radix_onesweep": 4,
+                             "radix_pass": 0}
+    assert after["radix_pass"] - before["radix_pass"] == 5
     assert after["wah_interleave"] - before["wah_interleave"] == 1
     assert after["local_compact"] - before["local_compact"] == 1
+
+
+#: key distributions of the B3 card tests; "card64" is the WAH input's
+#: (values below 64: every pass but the first sees one digit)
+SORT_DISTRIBUTIONS = ("random", "equal", "two_digits", "sorted", "reversed",
+                      "card64")
+
+
+def _sort_keys(dist, n, seed, device):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2 ** 32, n, dtype=np.uint64)
+    if dist == "equal":
+        x = np.full(n, 0x9E3779B9, np.uint64)
+    elif dist == "two_digits":
+        x = rng.choice(np.array([0x01234567, 0xFEDCBA98], np.uint64), n)
+    elif dist == "sorted":
+        x = np.sort(x)
+    elif dist == "reversed":
+        x = np.sort(x)[::-1].copy()
+    elif dist == "card64":
+        x = rng.integers(0, 64, n).astype(np.uint64)
+    return torch.from_numpy(x.astype(np.uint32)).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 255, 4096, TILE - 1, TILE + 1, 1 << 20])
+@pytest.mark.parametrize("dist", SORT_DISTRIBUTIONS)
+@pytest.mark.parametrize("bits", [4, 8])
+def test_radix_histogram_and_onesweep_are_bit_exact(cuda_device, n, dist,
+                                                     bits):
+    """Every pass of the onesweep kernel, fed the histogram kernel's row,
+    equals the plain stable pass on the same keys and payload."""
+    keys = _sort_keys(dist, n, n + bits, cuda_device)
+    idx = torch.arange(n, dtype=torch.int32, device=cuda_device).flip(0)
+    hist = radix_histogram(keys, bits=bits)
+    assert torch.equal(hist, ref.radix_histogram(keys, bits))
+    for p in range(32 // bits):
+        for payload in (idx, None):
+            got_k, got_i = radix_onesweep(keys, payload, hist[p], bits, p * bits)
+            want_k, want_i = ref.radix_onesweep(keys, payload, hist[p], bits,
+                                                p * bits)
+            assert _same_words(got_k, want_k), (dist, n, bits, p)
+            assert torch.equal(got_i, want_i), (dist, n, bits, p)
+
+
+@pytest.mark.parametrize("dist", ["random", "equal"])
+def test_radix_kernels_repeat_exactly(cuda_device, dist):
+    """Three calls on the same input give the same outputs: the
+    histogram's atomics add integers, and the look-back's order of
+    publication does not reach the result."""
+    keys = _sort_keys(dist, 1 << 20, 5, cuda_device)
+    idx = torch.arange(keys.shape[0], dtype=torch.int32, device=cuda_device)
+    outs = []
+    for _ in range(3):
+        hist = radix_histogram(keys)
+        k, i = radix_onesweep(keys, idx, hist[1], 8, 8)
+        outs.append((hist, k.clone(), i.clone(), ops.radix_sort(keys, idx)))
+    torch.cuda.synchronize()
+    for hist, k, i, (sk, si) in outs[1:]:
+        assert torch.equal(hist, outs[0][0])
+        assert _same_words(k, outs[0][1]) and torch.equal(i, outs[0][2])
+        assert _same_words(sk, outs[0][3][0])
+        assert torch.equal(si, outs[0][3][1])
+
+
+def test_radix_sort_is_stable_with_few_values(cuda_device):
+    """2**20 keys of 16 values: equal keys keep input order."""
+    keys = _sort_keys("card64", 1 << 20, 6, cuda_device)
+    keys = ref.i64_to_u32(ref.u32_to_i64(keys) % 16)
+    pos = torch.arange(keys.shape[0], dtype=torch.int32, device=cuda_device)
+    k, p = ops.radix_sort(keys, pos)
+    k64, p64 = ref.u32_to_i64(k), p.long()
+    assert torch.equal(k64, torch.sort(ref.u32_to_i64(keys)).values)
+    same = k64[1:] == k64[:-1]
+    assert bool((p64[1:][same] > p64[:-1][same]).all())
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4097, 300_000])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("vals_dtype", [torch.int32, torch.int64])
+def test_ops_radix_sort_equals_plain(cuda_device, n, bits, vals_dtype):
+    """int32 values ride through the passes; int64 values are gathered by
+    the carried index."""
+    keys = _sort_keys("random", n, n, cuda_device)
+    vals = torch.arange(n, dtype=vals_dtype, device=cuda_device) * 3
+    before = dict(RADIX_KERNEL.function_launches)
+    got_k, got_v = ops.radix_sort(keys, vals, bits_per_pass=bits)
+    want_k, want_v = ops.radix_sort(keys, vals, bits_per_pass=bits, impl="ref")
+    assert _same_words(got_k, want_k) and torch.equal(got_v, want_v)
+    assert (RADIX_KERNEL.function_launches["radix_onesweep"] -
+            before.get("radix_onesweep", 0)) == 32 // bits
+
+
+def test_radix_kernels_compile_without_spills(cuda_device):
+    infos = radix_kernel_info()
+    assert [i["kernel"] for i in infos] == ["radix_histogram",
+                                            "radix_onesweep"]
+    for info in infos:
+        assert info["spill_bytes"] == 0, info
+        assert 0 < info["registers"] <= 255
+        assert info["smem_bytes"] <= 48 * 1024
 
 
 def test_build_wah_index_matches_numpy(cuda_device):
