@@ -31,7 +31,19 @@ port's main path through the entry points a user calls:
   at 512 tokens. B6's bf16 kernel is also timed against SDPA at the
   prefill's own launch shape, and its registers, spills and shared memory
   are printed. B6's f32 kernel is timed against SDPA in f32 at the layer
-  shape.
+  shape;
+* serving at qwen3-1.7b's full width with the prefill phase's random
+  bf16 weights (``repro_torch.launch.serve``): 32 requests x 64 greedy
+  tokens through ``ServeEngine`` (batch 8, 2 workers), with tok/s,
+  latency percentiles, TTFT, the device time of a decode step against
+  its bound and the card's idle share; 1 x 256 tokens teacher-forced
+  through ``decode_step`` against the prefill forward's logits; the
+  engine's tokens against the static-batch loop's in f32; and the paged
+  engine (disaggregated prefill and decode over a ``PagePool``, the
+  ``--paged --full`` defaults) against the same step function over
+  contiguous caches. No kernel of the port is on the decode path: the
+  JAX package's decode attention is plain XLA, so it is plain PyTorch
+  here.
 
 Every B1, B3 and B6 kernel's registers and spill bytes are printed (none
 may spill), and ``cuobjdump -sass`` of the B1 and B6 libraries shows which
@@ -153,6 +165,23 @@ PREFILL_TOP1 = 0.9
 #: in f32 both paths are IEEE f32 and differ only in summation order: the
 #: logits are held to 1e-3 of the largest |logit|
 PREFILL_F32_TOL = 1e-3
+#: the serve phases: the launcher's defaults (``--requests 32 --batch 8
+#: --steps 64 --workers 2``; paged: ``--prefill-workers 2 --pages 512``)
+SERVE_REQUESTS, SERVE_BATCH, SERVE_STEPS, SERVE_WORKERS = 32, 8, 64, 2
+SERVE_PREFILL_WORKERS, SERVE_PAGES = 2, 512
+#: the card's idle share is read from one profiled batch of the engine
+#: (SERVE_BATCH requests x SERVE_PROFILE_STEPS steps) against the wall of
+#: the same run unprofiled; the profiler's trace grows with every launch
+SERVE_PROFILE_STEPS = 16
+#: engine against the static-batch loop in f32: two batches of
+#: SERVE_BATCH requests with distinct first tokens; the steps are cut
+#: from 64 to 24, enough to carry the cache through the engine's
+#: combine/split 24 times
+SERVE_F32_REQUESTS, SERVE_F32_STEPS = 2 * SERVE_BATCH, 24
+#: decode against prefill: 1 x 256 tokens teacher-forced one at a time,
+#: each step's logits held to the bf16 prefill check's limits against
+#: the prefill forward's at that position
+DECODE_S = 256
 
 
 def log(msg: str) -> None:
@@ -217,6 +246,37 @@ def host_us(fn, reps: int, rounds: int = 5) -> float:
         means.append((time.perf_counter() - t0) / reps * 1e6)
     torch.cuda.synchronize()
     return sorted(means)[rounds // 2]
+
+
+def device_busy_ms(events) -> float:
+    """Length of the union of the device intervals among profiler
+    ``events``, in ms."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def profiled_busy_ms(fn) -> float:
+    """The card's busy time, in ms, while ``fn`` runs under
+    ``torch.profiler`` (device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof.events())
 
 
 def bytes_ms(nbytes: float) -> float:
@@ -301,6 +361,239 @@ def prefill_model(rng, dev):
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to(dev)
     return cfg, model, model.init(0), tokens
+
+
+# -- the serve phases -----------------------------------------------------------
+def param_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def latency_line(name: str, run: dict) -> dict:
+    """Log and return an engine run's throughput, latency and TTFT."""
+    stats, results = run["stats"], run["results"]
+    toks = sum(len(r.tokens) for r in results)
+    lat, ttft = stats["latency"], stats["ttft"]
+    row = dict(requests=len(results), tokens=toks, wall_s=run["wall_s"],
+               tok_per_s=toks / run["wall_s"], steps=stats["steps"],
+               requeues=stats["requeues"],
+               p50_ms=lat["p50_ms"], p95_ms=lat["p95_ms"],
+               p99_ms=lat["p99_ms"], ttft_p50_ms=ttft["p50_ms"],
+               ttft_p95_ms=ttft["p95_ms"], ttft_p99_ms=ttft["p99_ms"])
+    log(f"{name}: {len(results)} requests, {toks} tokens in "
+        f"{run['wall_s']:.3f} s: {row['tok_per_s']:.1f} tok/s")
+    log(f"{name}: latency p50 {lat['p50_ms']:.1f} ms, p95 "
+        f"{lat['p95_ms']:.1f} ms, p99 {lat['p99_ms']:.1f} ms")
+    log(f"{name}: TTFT p50 {ttft['p50_ms']:.1f} ms, p95 {ttft['p95_ms']:.1f}"
+        f" ms, p99 {ttft['p99_ms']:.1f} ms")
+    log(f"{name}: engine steps {stats['steps']}, requeues "
+        f"{stats['requeues']}")
+    return row
+
+
+def check_engine_run(name: str, run: dict, requests: int, steps: int,
+                     vocab: int) -> None:
+    stats = run["stats"]
+    check(stats["completed"] == requests and stats["failed"] == 0,
+          f"{name}: {stats['completed']} of {requests} requests completed, "
+          f"{stats['failed']} failed")
+    for r in run["results"]:
+        check(len(r.tokens) == steps and
+              all(0 <= int(t) < vocab for t in r.tokens),
+              f"{name}: request {r.request_id} gave {len(r.tokens)} tokens "
+              "or one out of the vocabulary")
+    for key in ("transfers", "spills"):
+        check(run["memref_after"][key] == run["memref_before"][key],
+              f"{name}: the registry's {key} grew during the run")
+
+
+def serve_engine_phase(run_phase, model, params, dev) -> dict:
+    """32 requests x 64 greedy tokens at full width in bf16 through
+    ``ServeEngine``; the device time of a decode step (profiled) against
+    its bound, and the card's idle share."""
+    from repro_torch.dist.step import build_serve_step
+    from repro_torch.launch.serve import run_engine
+    cfg = model.cfg
+    kw = dict(batch=SERVE_BATCH, workers=SERVE_WORKERS)
+    run_engine(model, params, requests=SERVE_BATCH, steps=2, **kw)  # warm up
+    name = (f"serve engine qwen3-1.7b bf16 {SERVE_REQUESTS}x{SERVE_STEPS} "
+            f"batch {SERVE_BATCH}")
+    run = run_phase(name, [], lambda: run_engine(
+        model, params, requests=SERVE_REQUESTS, steps=SERVE_STEPS, **kw))
+    check_engine_run(name, run, SERVE_REQUESTS, SERVE_STEPS, cfg.vocab_size)
+    check(run["stats"]["requeues"] == 0, f"{name}: a step was requeued")
+    row = latency_line(name, run)
+    # device time of one decode step at batch 8, mid-sequence: the step
+    # alone (profiled, so host gaps do not count) and one engine step
+    # (the worker's cache combine and split included)
+    capacity = SERVE_STEPS + 1
+    serve_step = build_serve_step(model)
+    cache = model.init_cache(SERVE_BATCH, capacity)
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device=dev)
+    for _ in range(SERVE_STEPS // 2):
+        tok, _, cache = serve_step(params, cache, tok)
+    reps = 8
+
+    def steps():
+        for _ in range(reps):
+            serve_step(params, cache, tok)
+    step_busy = profiled_busy_ms(steps) / reps
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) * 1e3 / reps
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for g in cache["groups"] for c in g for t in c.values())
+    logit_bytes = SERVE_BATCH * cfg.vocab_size * 2
+    weights = param_bytes(params)
+    bound = max(bytes_ms(weights + cache_bytes + logit_bytes),
+                ops_ms(2.0 * weights / 2 * SERVE_BATCH, BF16_FLOPS))
+    prof_kw = dict(requests=SERVE_BATCH, steps=SERVE_PROFILE_STEPS, **kw)
+    busy = profiled_busy_ms(lambda: run_engine(model, params, **prof_kw))
+    again = run_engine(model, params, **prof_kw)
+    idle = max(0.0, 1.0 - busy / (again["wall_s"] * 1e3))
+    engine_step_busy = busy / again["stats"]["steps"]
+    main_idle = max(0.0, 1.0 - run["stats"]["steps"] * engine_step_busy /
+                    (run["wall_s"] * 1e3))
+    row.update(step_device_ms=step_busy, step_wall_ms=step_wall,
+               engine_step_device_ms=engine_step_busy,
+               engine_step_wall_ms=run["wall_s"] * 1e3 / run["stats"]["steps"],
+               step_bound_ms=bound, weight_bytes=weights,
+               idle_share=idle, idle_share_main_run=main_idle,
+               profiled_run=f"{SERVE_BATCH}x{SERVE_PROFILE_STEPS}")
+    log(f"{name}: decode step at batch {SERVE_BATCH}: device {step_busy:.4f} "
+        f"ms (profiled), host wall {step_wall:.3f} ms; an engine step "
+        f"{engine_step_busy:.4f} ms of device time, "
+        f"{row['engine_step_wall_ms']:.3f} ms of wall; bound {bound:.4f} ms "
+        f"({weights / 1e9:.3f} GB of weights, {cache_bytes / 1e6:.2f} MB of "
+        f"cache at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    log(f"{name}: device idle share {idle:.4f} (profiled engine run "
+        f"{SERVE_BATCH}x{SERVE_PROFILE_STEPS}: busy {busy:.3f} ms, wall "
+        f"{again['wall_s'] * 1e3:.3f} ms unprofiled); the "
+        f"{SERVE_REQUESTS}x{SERVE_STEPS} run at that device time a step: "
+        f"{main_idle:.4f}")
+    return row
+
+
+def decode_prefill_phase(run_phase, model, params, tokens) -> dict:
+    """1 x DECODE_S tokens teacher-forced through ``decode_step``, each
+    step's logits against the prefill forward's at that position, to the
+    bf16 prefill check's limits."""
+    name = f"decode against prefill qwen3-1.7b bf16 1x{DECODE_S}"
+    tokens = tokens[:1, :DECODE_S]
+
+    def body():
+        cache = model.init_cache(1, DECODE_S)
+        out = []
+        for t in range(DECODE_S):
+            logits, cache = model.decode_step(params, tokens[:, t:t + 1],
+                                              cache)
+            out.append(logits[0, 0])
+        return torch.stack(out), cache
+
+    got, cache = run_phase(name, [], body)
+    want = model.forward(params, {"tokens": tokens})[0][0].float()
+    got = got.float()
+    check(int(cache["len"]) == DECODE_S and bool(torch.isfinite(got).all()),
+          f"{name}: cache length or logits wrong")
+    err = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1)
+    ratio = float((err / scale).max())
+    rms = float((got - want).square().mean().sqrt() /
+                want.square().mean().sqrt())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"{name}: worst step max_abs_err / max |logit| {ratio} (limit "
+        f"{PREFILL_BF16_TOL}), relative RMS {rms} (limit "
+        f"{PREFILL_BF16_RMS_TOL}), top-1 agreement {top1} (limit "
+        f"{PREFILL_TOP1})")
+    check(ratio <= PREFILL_BF16_TOL, f"{name}: a step's logits differ by "
+          f"{ratio} of max |logit| > {PREFILL_BF16_TOL}")
+    check(rms <= PREFILL_BF16_RMS_TOL, f"{name}: relative RMS {rms}")
+    check(top1 >= PREFILL_TOP1, f"{name}: top-1 agreement {top1}")
+    return dict(max_err_ratio=ratio, rms_rel=rms, top1=top1)
+
+
+def serve_f32_phase(run_phase, model32, params32, rng) -> dict:
+    """The engine's tokens against the static-batch loop's at the same
+    requests, in f32 with TF32 off."""
+    from repro_torch.launch.serve import run_engine, run_sync
+    cfg = model32.cfg
+    prompts = [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                            SERVE_F32_REQUESTS)]
+    name = (f"serve engine against sync qwen3-1.7b f32 "
+            f"{SERVE_F32_REQUESTS}x{SERVE_F32_STEPS}")
+    run = run_phase(name, [], lambda: run_engine(
+        model32, params32, requests=SERVE_F32_REQUESTS, batch=SERVE_BATCH,
+        steps=SERVE_F32_STEPS, workers=SERVE_WORKERS, prompts=prompts))
+    check_engine_run(name, run, SERVE_F32_REQUESTS, SERVE_F32_STEPS,
+                     cfg.vocab_size)
+    got = [[int(t) for t in r.tokens] for r in run["results"]]
+    want = []
+    for i in range(0, SERVE_F32_REQUESTS, SERVE_BATCH):
+        want += run_sync(model32, params32, batch=SERVE_BATCH,
+                         steps=SERVE_F32_STEPS,
+                         prompts=prompts[i:i + SERVE_BATCH])["tokens"].tolist()
+    same = sum(g == w for g, w in zip(got, want))
+    log(f"{name}: {same} of {SERVE_F32_REQUESTS} requests give the sync "
+        f"loop's tokens; {run['wall_s']:.3f} s")
+    check(same == SERVE_F32_REQUESTS,
+          f"{name}: the engine's tokens differ from the sync loop's")
+    return dict(requests=SERVE_F32_REQUESTS, steps=SERVE_F32_STEPS,
+                equal=same, wall_s=run["wall_s"])
+
+
+def serve_paged_phase(run_phase, cfg, dev) -> dict:
+    """The ``--paged --full`` defaults: prefill and decode workers over a
+    PagePool at qwen3-1.7b's widths, against the same step function over
+    contiguous caches."""
+    from repro_torch.core.memref import registry
+    from repro_torch.launch.serve import (contiguous_tokens, paged_model,
+                                          run_paged)
+    kw = dict(batch=SERVE_BATCH, workers=SERVE_WORKERS,
+              prefill_workers=SERVE_PREFILL_WORKERS, pages=SERVE_PAGES)
+    warm = run_paged(cfg, dev, requests=4, steps=2, **kw)   # warm up
+    warm["pool"].evict_prefixes()
+    del warm
+    name = (f"serve paged qwen3-1.7b widths {SERVE_REQUESTS}x{SERVE_STEPS} "
+            f"batch {SERVE_BATCH}")
+    run = run_phase(name, [], lambda: run_paged(
+        cfg, dev, requests=SERVE_REQUESTS, steps=SERVE_STEPS, **kw))
+    check_engine_run(name, run, SERVE_REQUESTS, SERVE_STEPS, cfg.vocab_size)
+    row = latency_line(name, run)
+    stats, pool = run["stats"], run["pool"]
+    ps = stats["pool"]
+    log(f"{name}: occupancy {stats['occupancy']:.2f}, prefills "
+        f"{stats['prefills']}, prefix_hits {stats['prefix_hits']}; pool: "
+        f"{ps['pages_live']}/{ps['pages_total']} pages live (peak "
+        f"{ps['peak_pages']}), shared={ps['pages_shared']}, cow={ps['cow']},"
+        f" fragmentation={ps['fragmentation']:.2f}")
+    check(stats["prefix_hits"] > 0, f"{name}: no prefix hit")
+    prefill_fn, step_fn = paged_model(run["weights"])
+    reference = {}
+    for p in run["prompts"]:
+        key = tuple(p)
+        if key not in reference:
+            reference[key] = contiguous_tokens(prefill_fn, step_fn, p,
+                                               SERVE_STEPS)
+    same = sum([int(t) for t in r.tokens] == reference[tuple(p)]
+               for p, r in zip(run["prompts"], run["results"]))
+    log(f"{name}: {same} of {SERVE_REQUESTS} requests give the tokens of "
+        "the same step function over contiguous caches")
+    check(same == SERVE_REQUESTS, f"{name}: paged tokens differ from the "
+          "contiguous run's")
+    pool.evict_prefixes()
+    live = pool.stats()["pages_live"]
+    log(f"{name}: after stop and evict_prefixes: pages_live {live}; "
+        f"registry transfers {run['memref_after']['transfers']} (before "
+        f"{run['memref_before']['transfers']}), spills "
+        f"{run['memref_after']['spills']} (before "
+        f"{run['memref_before']['spills']})")
+    check(live == 0, f"{name}: {live} pages live after evict_prefixes")
+    check(registry.page_stats(dev)["pages_live"] == 0,
+          f"{name}: the registry still sees live pages")
+    row.update(prefix_hits=stats["prefix_hits"], cow=ps["cow"],
+               occupancy=stats["occupancy"], peak_pages=ps["peak_pages"],
+               equal_to_contiguous=same)
+    return row
 
 
 def main() -> int:
@@ -711,6 +1004,8 @@ def main() -> int:
         shape=list(FA_PREFILL),
         max_abs_err=sweep[len(FA_BF16_SEEDS)]["max_abs_err"],
         ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20),
+        plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True),
+                         3),
         bound_ms=fa_bound_ms(q, k, v),
         library_ms=cuda_ms(lambda: sdpa(q, k, v), 20),
         host_us=host_us(lambda: flash_attention(q, k, v, causal=True), 20),
@@ -721,8 +1016,9 @@ def main() -> int:
                    (f"{PREFILL_B}x{FA_H}({FA_HKV})x{PREFILL_S}^2x{FA_D}",
                     prefill_shape)):
         log(f"flash_attention bf16 causal {tag}: kernel {r['ms']:.4f} ms, "
-            f"SDPA {r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x"
-            f"), bound {r['bound_ms']:.4f} ms")
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.2f}x), bound {r['bound_ms']:.4f} "
+            "ms")
     log(f"flash_attention bf16: {prefill_shape['host_us']:.1f} us of host "
         "work a call (wrapper, custom op, tensor maps, launch); SDPA "
         f"{prefill_shape['library_host_us']:.1f} us")
@@ -735,13 +1031,16 @@ def main() -> int:
     f32_row = dict(
         shape=list(FA_LAYER), max_abs_err=fa_err[f"f32 causal S={FA_S}"],
         ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 5),
+        plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True),
+                         3),
         bound_ms=max(bytes_ms(4 * (2 * q.numel() + k.numel() + v.numel())),
                      ops_ms(4.0 * b_ * h_ * s_ * s_ * d_ / 2, F32_FLOPS)),
         library_ms=cuda_ms(lambda: sdpa(q, k, v), 5),
         library="F.scaled_dot_product_attention, f32 (TF32 off)")
     rows["flash_attention"]["f32"] = f32_row
     log(f"flash_attention f32 causal {FA_B}x{FA_H}({FA_HKV})x{FA_S}^2x{FA_D}:"
-        f" kernel {f32_row['ms']:.4f} ms, SDPA {f32_row['library_ms']:.4f} ms"
+        f" kernel {f32_row['ms']:.4f} ms, plain {f32_row['plain_ms']:.4f} ms,"
+        f" SDPA {f32_row['library_ms']:.4f} ms"
         f", bound {f32_row['bound_ms']:.4f} ms (f32 SIMT peak)")
     del q, k, v
     torch.cuda.empty_cache()
@@ -920,7 +1219,15 @@ def main() -> int:
           f"error {last_err} > {PREFILL_BF16_TOL} x {scale}")
     check(rms_rel <= PREFILL_BF16_RMS_TOL, f"bf16 prefill: relative RMS "
           f"error {rms_rel} > {PREFILL_BF16_RMS_TOL}")
-    del logits, plain, params, model
+    del logits, plain
+    torch.cuda.empty_cache()
+
+    # -- serving with the prefill's model and weights ----------------------------
+    serve = {"card": card}
+    serve["engine"] = serve_engine_phase(run_phase, model, params, dev)
+    serve["decode_vs_prefill"] = decode_prefill_phase(run_phase, model,
+                                                      params, tokens)
+    del params, model
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
@@ -937,7 +1244,13 @@ def main() -> int:
     check(err32 <= PREFILL_F32_TOL * scale32,
           "f32 prefill: kernel and plain attention disagree beyond "
           f"{PREFILL_F32_TOL} x max |logit|")
-    del got32, want32, params32, model32
+    del got32, want32
+    serve["engine_vs_sync_f32"] = serve_f32_phase(run_phase, model32,
+                                                  params32, rng)
+    del params32, model32
+    torch.cuda.empty_cache()
+    serve["paged"] = serve_paged_phase(run_phase, cfg, dev)
+    print(json.dumps({"serve": serve}), flush=True)
 
     entries = []
     for kname, row in rows.items():

@@ -5,17 +5,19 @@ numpy and handed to both packages: :func:`from_jax_arrays` turns such a
 tree into tensors on one device with every dtype kept, uint32 and
 bfloat16 included, so both packages compute from identical inputs.
 :func:`params_from_jax` does the same for a model's parameters, so both
-packages run one set of random weights.
+packages run one set of random weights. :func:`cache_from_jax` carries a
+decode cache across, so both packages decode from one nonzero cache.
 """
 from __future__ import annotations
 
+import torch
 import torch.utils._pytree as pytree
 
 from .core.memref import as_device_array
 from .models.layers import ParamTree
 from .models.transformer import layer_groups
 
-__all__ = ["from_jax_arrays", "params_from_jax"]
+__all__ = ["from_jax_arrays", "params_from_jax", "cache_from_jax"]
 
 
 def from_jax_arrays(tree, device=None):
@@ -54,3 +56,33 @@ def params_from_jax(cfg, jax_params, device=None) -> ParamTree:
     if "head" in tree:
         params["head"] = tree["head"]
     return ParamTree(params)
+
+
+def cache_from_jax(cfg, jax_cache, device=None) -> dict:
+    """The port's decode cache from the JAX package's
+    ``Model(cfg).init_cache`` / ``decode_step`` cache, given as numpy
+    arrays (or anything with ``__array__``). Both packages keep one
+    structure, ``{"len": int32 0-d, "groups": [[{"k", "v"}]]}`` with
+    leaves ``[count, B, S, Hkv, Dh]``, so this converts leaf for leaf and
+    checks the structure against ``cfg``. ``device`` as in
+    :func:`from_jax_arrays`."""
+    cache = from_jax_arrays(jax_cache, device)
+    groups = layer_groups(cfg)
+    if len(cache["groups"]) != len(groups):
+        raise ValueError(f"cache has {len(cache['groups'])} layer groups; "
+                         f"{cfg.name} has {len(groups)}")
+    for (unit, count), gc in zip(groups, cache["groups"]):
+        if len(gc) != len(unit):
+            raise ValueError(f"cache group has {len(gc)} blocks; the unit "
+                             f"{unit} has {len(unit)}")
+        for c in gc:
+            for name in ("k", "v"):
+                shape = tuple(c[name].shape)
+                if (len(shape) != 5 or shape[0] != count or
+                        shape[3:] != (cfg.n_kv_heads, cfg.resolved_head_dim)):
+                    raise ValueError(
+                        f"cache leaf {name!r} has shape {shape}; expected "
+                        f"[{count}, B, S, {cfg.n_kv_heads}, "
+                        f"{cfg.resolved_head_dim}]")
+    cache["len"] = cache["len"].to(torch.int32).reshape(())
+    return cache

@@ -101,8 +101,8 @@ class Device:
         return registry.peak_bytes(self.torch_device)
 
     def page_stats(self) -> dict:
-        """KV page-pool pressure on this device (all zero until the port
-        has a page pool)."""
+        """KV page-pool pressure on this device
+        (:class:`~repro_torch.serve.kvpool.PagePool`\\ s placed here)."""
         from .memref import registry
         return registry.page_stats(self.torch_device)
 

@@ -36,6 +36,7 @@ assert on.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -121,6 +122,7 @@ class RefRegistry:
         self._count = 0
         self._bytes: Dict[Any, int] = {}
         self._peak: Dict[Any, int] = {}
+        self._pool_refs: list = []      # weakrefs to live PagePools
         self.transfers = 0
         self.readbacks = 0
         self.spills = 0
@@ -170,13 +172,38 @@ class RefRegistry:
         with self._lock:
             self.unspills += 1
 
-    # -- page pools ------------------------------------------------------
+    # -- page pools (repro_torch.serve.kvpool) --------------------------
+    def register_pool(self, pool) -> None:
+        """Track a page pool (weakly) so page pressure is reported next
+        to the byte watermarks in :func:`memory_stats`."""
+        with self._lock:
+            self._pool_refs.append(weakref.ref(pool))
+            self._pool_refs = [r for r in self._pool_refs
+                               if r() is not None]
+
+    def _live_pools(self, device=None) -> list:
+        with self._lock:
+            pools = [r() for r in self._pool_refs]
+        pools = [p for p in pools if p is not None]
+        if device is None:
+            return pools
+        return [p for p in pools if p.device == device]
+
     def page_stats(self, device=None) -> dict:
-        """Page-pool pressure (optionally one device's). The port has no
-        KV page pool yet, so every figure is zero; the hook keeps
-        :meth:`stats` and ``Device.page_stats`` in their final shape."""
-        return {"pages_total": 0, "pages_live": 0, "pages_free": 0,
-                "pages_shared": 0, "peak_pages": 0, "fragmentation": 0.0}
+        """Aggregated page-pool pressure (optionally one device's):
+        capacity, live/free/shared pages, peak, and the internal
+        fragmentation ratio (unused slots inside allocated pages)."""
+        agg = {"pages_total": 0, "pages_live": 0, "pages_free": 0,
+               "pages_shared": 0, "peak_pages": 0}
+        used = slots = 0
+        for pool in self._live_pools(device):
+            s = pool.stats()          # pool lock only; never ours
+            for k in agg:
+                agg[k] += s[k]
+            used += s["used_slots"]
+            slots += s["page_slots"]
+        agg["fragmentation"] = (1.0 - used / slots) if slots else 0.0
+        return agg
 
     # -- queries ------------------------------------------------------
     def live_count(self) -> int:
@@ -205,7 +232,7 @@ class RefRegistry:
                 "spills": self.spills,
                 "unspills": self.unspills,
             }
-        pages = self.page_stats()
+        pages = self.page_stats()       # own locking (pool locks)
         base["pages_total"] = pages["pages_total"]
         base["pages_free"] = pages["pages_free"]
         base["pages_shared"] = pages["pages_shared"]

@@ -92,13 +92,21 @@ def compact_gather(blocks: torch.Tensor, counts: torch.Tensor, n: int
 def stream_compact(x: torch.Tensor, *, bs: int = 256, drop_value: int = 0,
                    impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Compacted array (prefix-valid layout, ``x``'s dtype) + surviving
-    count."""
+    count. ``x`` holds 32-bit integer words (uint32 or int32) on both
+    paths; any other dtype raises :class:`TypeError`."""
+    _check_words(x)
     if _plain(impl):
         return ref.stream_compact(x, drop_value)
     blocks, counts = local_compact(x.view(torch.uint32), bs=bs,
                                    drop_value=drop_value)
     out, total = compact_gather(blocks, counts, x.shape[0])
     return out.view(x.dtype), total
+
+
+def _check_words(x: torch.Tensor) -> None:
+    if x.dtype not in (torch.uint32, torch.int32):
+        raise TypeError(f"stream_compact takes uint32 or int32 words, got "
+                        f"{x.dtype}")
 
 
 # ----------------------------------------------------------------------------
@@ -119,9 +127,14 @@ def radix_sort(keys: torch.Tensor, values: Optional[torch.Tensor] = None, *,
     the kernel's own (``radix_sort.TILE`` keys). Digits wider than 8 bits
     take the plain sort, as in the JAX package
     (``repro/kernels/ops.py:113``).
+
+    A payload that is not 1-d raises :class:`ValueError` on both paths:
+    the JAX package's ``jnp.take`` with no axis reads such a payload
+    flattened and mixes its rows, which the port does not copy.
     """
     if _plain(impl) or bits_per_pass > 8:
         return ref.radix_sort_u32(keys, values, bits_per_pass=bits_per_pass)
+    ref.check_payload(values)
     if 32 % bits_per_pass:
         raise ValueError(f"bits_per_pass={bits_per_pass} must divide 32")
     n, passes = keys.shape[0], 32 // bits_per_pass

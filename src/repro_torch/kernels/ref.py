@@ -23,7 +23,8 @@ __all__ = [
     "u32_to_i64", "i64_to_u32",
     "matmul",
     "MandelbrotView", "mandelbrot_view", "mandelbrot_rows", "mandelbrot",
-    "radix_pass", "radix_histogram", "radix_onesweep", "radix_sort_u32",
+    "radix_pass", "radix_histogram", "radix_onesweep", "check_payload",
+    "radix_sort_u32",
     "local_compact", "stream_compact",
     "wah_interleave",
     "flash_attention",
@@ -187,10 +188,19 @@ def radix_onesweep(keys: torch.Tensor, idx: Optional[torch.Tensor],
     return _take(keys, order), idx[order]
 
 
+def check_payload(values: Optional[torch.Tensor]) -> None:
+    """A radix sort's payload is 1-d: :class:`ValueError` otherwise."""
+    if values is not None and values.ndim != 1:
+        raise ValueError(f"radix_sort takes a 1-d payload, got shape "
+                         f"{tuple(values.shape)}")
+
+
 def radix_sort_u32(keys: torch.Tensor, values: Optional[torch.Tensor] = None,
                    bits_per_pass: int = 16):
     """Stable LSD radix sort of uint32 keys (optionally with a payload),
-    one stable argsort per digit pass."""
+    one stable argsort per digit pass. The payload must be 1-d
+    (:class:`ValueError` otherwise), as in ``ops.radix_sort``."""
+    check_payload(values)
     if 32 % bits_per_pass:
         raise ValueError(f"bits_per_pass={bits_per_pass} must divide 32")
     k = u32_to_i64(keys)

@@ -7,8 +7,18 @@ it runs ``ops.flash_attention``, which launches the hand-written flash
 kernel for CUDA tensors and takes its plain version on the CPU; the
 kernel has no logit softcap, so a config with one raises there.
 ``impl="ref"`` (the default, as ``"xla"`` is in JAX) is the grouped-head
-einsum, which never repeats K/V per query head. Decode with a KV cache,
-the chunked path and cross-attention come with serving (ROADMAP A9).
+einsum, which never repeats K/V per query head.
+
+The decode path (:func:`init_kv_cache`, :func:`decode_attention`) is
+plain PyTorch, as it is plain XLA in the JAX package: one new token
+against the whole cache, scores in f32. It is pure: the new K/V row is
+written into a copy of the cache at a device-side position, and the input
+cache is never written, so a decode step can be replayed on the same
+cache. A decode step over many layers makes that copy, the write index,
+the validity mask and the RoPE tables once for all its layers and hands
+them to :func:`decode_attention_into`, which writes into the copy.
+The chunked prefill and cross-attention come with the encdec family
+(ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -19,9 +29,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import apply_norm, apply_rope, init_norm, normal
+from .layers import apply_norm, init_norm, normal, rope_tables, rotate
 
-__all__ = ["ATTN_IMPLS", "init_attention", "attention"]
+__all__ = ["ATTN_IMPLS", "init_attention", "attention", "init_kv_cache",
+           "decode_rope", "decode_mask", "write_index",
+           "decode_attention_into", "decode_attention"]
 
 ATTN_IMPLS = ("ref", "kernel")
 
@@ -47,7 +59,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions
+def decode_rope(cfg: ModelConfig, positions: Optional[torch.Tensor]
+                ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The RoPE tables for ``positions`` [B,S] (None: no rotation)."""
+    if positions is None:
+        return None
+    if cfg.m_rope:
+        raise NotImplementedError("M-RoPE comes with the vlm family "
+                                  "(ROADMAP A10)")
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -62,12 +85,8 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
         k = apply_norm(p["k_norm"], k, "rmsnorm")
-    if positions is not None:
-        if cfg.m_rope:
-            raise NotImplementedError("M-RoPE comes with the vlm family "
-                                      "(ROADMAP A10)")
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if rope is not None:
+        q, k = rotate(q, *rope), rotate(k, *rope)
     return q, k, v
 
 
@@ -109,7 +128,87 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions, *,
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn impl {impl!r}; expected one of {ATTN_IMPLS}")
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, decode_rope(cfg, positions))
     out = _mha(q, k, v, causal=causal, window=window,
                softcap=cfg.attn_logit_softcap, impl=impl)
     return out.reshape(b, s, -1) @ p["wo"]
+
+
+# ----------------------------------------------------------------------------
+# decode path — one new token against a KV cache
+# ----------------------------------------------------------------------------
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  n_layers: int, device) -> dict:
+    """Zero K and V caches of shape ``[n_layers, B, max_len, Hkv, Dh]``;
+    ``device="meta"`` gives their shapes without memory."""
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def write_index(pos: torch.Tensor, smax: int) -> torch.Tensor:
+    """Sequence index [1] int64 of a K/V row written at ``pos`` (a 0-d
+    device tensor) into a cache of ``smax`` slots, clamped into the cache
+    as ``dynamic_update_slice`` clamps its start."""
+    return pos.reshape(1).to(torch.int64).clamp(0, smax - 1)
+
+
+def decode_mask(cache_len: torch.Tensor, smax: int, window: Optional[int]
+                ) -> torch.Tensor:
+    """[smax] bool, true at the cache slots a decode step must not read.
+    ``cache_len`` drives it, saturated at the capacity: once a ring-buffer
+    cache has wrapped, every slot is live."""
+    kpos = torch.arange(smax, device=cache_len.device)
+    valid = kpos <= torch.clamp(cache_len, max=smax - 1)
+    if window is not None:
+        valid = valid & (kpos > (cache_len - window))
+    return ~valid
+
+
+def decode_attention_into(p, cfg: ModelConfig, x: torch.Tensor, k_cache,
+                          v_cache, index: torch.Tensor, masked: torch.Tensor,
+                          rope) -> torch.Tensor:
+    """One-token attention that writes the new K/V row into ``k_cache``
+    and ``v_cache`` [B,Smax,Hkv,Dh] in place, at ``index`` (from
+    :func:`write_index`), and attends over the slots that ``masked`` (from
+    :func:`decode_mask`) leaves. ``rope`` is :func:`decode_rope`'s. The
+    caller owns the caches: they are copies, never a step's input.
+    Returns out [B,1,D]."""
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, cfg, x, rope)
+    k_cache.index_copy_(1, index, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, index, v_new.to(v_cache.dtype))
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    qg = q.reshape(b, hkv, h // hkv, hd)                          # [B,Hkv,G,D]
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                          k_cache.float()) * (hd ** -0.5)
+    if cfg.attn_logit_softcap is not None:
+        cap = cfg.attn_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    logits = logits.masked_fill(masked, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs,
+                       v_cache.float()).to(x.dtype)
+    return out.reshape(b, 1, h * hd) @ p["wo"]
+
+
+def decode_attention(p, cfg: ModelConfig, x: torch.Tensor, k_cache, v_cache,
+                     cache_len, positions, *, window: Optional[int] = None,
+                     write_pos=None):
+    """One-token attention. x: [B,1,D]; caches: [B,Smax,Hkv,Dh];
+    ``cache_len`` a 0-d int tensor on x's device.
+
+    Returns (out [B,1,D], new_k_cache, new_v_cache). The new K/V row is
+    written at ``write_pos`` (default ``cache_len``; ring-buffer caches
+    pass ``cache_len % capacity``) into copies of the caches;
+    ``cache_len`` always drives the validity mask, saturated at the cache
+    capacity. Nothing here reads a device value back to the host.
+    """
+    if write_pos is None:
+        write_pos = cache_len
+    smax = k_cache.shape[1]
+    k_cache, v_cache = k_cache.clone(), v_cache.clone()
+    out = decode_attention_into(
+        p, cfg, x, k_cache, v_cache, write_index(write_pos, smax),
+        decode_mask(cache_len, smax, window), decode_rope(cfg, positions))
+    return out, k_cache, v_cache

@@ -11,14 +11,15 @@ return plain dicts of tensors. ``apply_m_rope`` and
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["ParamTree", "init_norm", "apply_norm", "rope_freqs",
-           "apply_rope", "init_mlp", "apply_mlp", "init_embedding", "normal"]
+           "rope_tables", "rotate", "apply_rope", "init_mlp", "apply_mlp",
+           "init_embedding", "normal"]
 
 
 class ParamTree(nn.Module):
@@ -91,13 +92,24 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) [B,S,1,d/2] f32 for positions [B,S] ints, made once and
+    shared by every layer that rotates at these positions."""
+    freqs = rope_freqs(head_dim, theta, positions.device)        # (d/2,)
+    angles = positions[..., None].float() * freqs                 # [B,S,d/2]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: [B,S,H,D]; positions: [B,S] ints. Half-split (NeoX) convention."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (d/2,)
-    angles = positions[..., None].float() * freqs                 # [B,S,d/2]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+           ) -> torch.Tensor:
+    """x: [B,S,H,D] rotated by :func:`rope_tables`' ``cos``/``sin``."""
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -1,5 +1,6 @@
 """cfg-bound model facade — the port of the JAX package's
-``repro/models/model.py`` for prefill: ``init`` and ``forward``.
+``repro/models/model.py``: ``init``, ``forward`` (prefill), and the
+serving half, ``init_cache`` and ``decode_step``.
 
 A ``Model`` is bound to a device: the current CUDA device unless the
 caller names another (``LookupError`` without a card), like every entry
@@ -17,7 +18,7 @@ from . import transformer
 from .attention import ATTN_IMPLS
 from .layers import ParamTree
 
-__all__ = ["Model"]
+__all__ = ["Model", "serve_input_specs"]
 
 
 class Model:
@@ -56,3 +57,28 @@ class Model:
             return transformer.forward(params, self.cfg, tokens,
                                        positions=positions,
                                        attn_impl=self.attn_impl)
+
+    # -- serving ----------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, device=None
+                   ) -> Dict[str, Any]:
+        """A zero decode cache on the model's device, or on ``device``
+        (``"meta"``: shapes and dtypes only, the port's ``eval_shape``)."""
+        return transformer.init_cache(
+            self.cfg, batch, max_len,
+            device=self.device if device is None else torch.device(device))
+
+    def decode_step(self, params: ParamTree, tokens: torch.Tensor,
+                    cache: Dict[str, Any]
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """tokens [B,1] on the model's device + cache → (logits [B,1,V],
+        new cache); ``cache`` is not written."""
+        with torch.no_grad():
+            return transformer.decode_step(params, self.cfg, tokens, cache)
+
+
+def serve_input_specs(cfg: ModelConfig, batch: int
+                      ) -> Dict[str, torch.Tensor]:
+    """One decode step's fresh inputs as ``meta`` tensors (the cache's
+    come from ``Model.init_cache(..., device="meta")``)."""
+    return {"tokens": torch.empty((batch, 1), dtype=torch.int32,
+                                  device="meta")}

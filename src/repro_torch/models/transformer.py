@@ -1,16 +1,24 @@
 """Decoder-only LM assembly, dense family — the port of the JAX package's
-``repro/models/transformer.py`` for the forward pass (prefill).
+``repro/models/transformer.py`` for the forward pass (prefill) and the
+cache-carrying decode step.
 
 The JAX package stacks each layer group's parameters along a leading
 ``count`` axis and runs the group as one ``jax.lax.scan``. PyTorch runs
 eagerly, so here every layer is a module of its own (``params["layers"]``,
 in execution order) and the forward pass is a Python loop over them.
-The moe, ssm, hybrid, encdec and vlm families, the loss and the decode
-path come later (ROADMAP A9, A10).
+
+The decode cache keeps the JAX package's structure, ``{"len": int32 0-d,
+"groups": [[{"k", "v"}]]}`` with leaves stacked ``[count, B, S, Hkv,
+Dh]`` per group, so caches convert between the packages leaf for leaf
+(``convert.cache_from_jax``). :func:`decode_step` is pure: it returns a
+new cache and never writes the one it was given.
+
+The moe, ssm, hybrid, encdec and vlm families and the loss come later
+(ROADMAP A10); their unit kinds raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -20,7 +28,7 @@ from .layers import (ParamTree, apply_mlp, apply_norm, init_embedding,
                      init_mlp, init_norm)
 
 __all__ = ["check_family", "layer_groups", "init_params", "embed_inputs",
-           "forward"]
+           "forward", "init_cache", "decode_step"]
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -94,3 +102,73 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = x @ head.to(x.dtype)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ----------------------------------------------------------------------------
+# decode (one token, cache-carrying)
+# ----------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device
+               ) -> Dict[str, Any]:
+    """A zero cache for ``batch`` sequences of up to ``max_len`` tokens on
+    ``device`` (``"meta"`` for shapes only)."""
+    dtype = cfg.dtype()
+    groups = []
+    for unit, count in layer_groups(cfg):
+        unit_caches = []
+        for kind in unit:
+            if kind != "attn":
+                raise NotImplementedError(
+                    f"{kind!r} decode units come with their model family "
+                    "(ROADMAP A10)")
+            unit_caches.append(attn_mod.init_kv_cache(
+                cfg, batch, max_len, dtype, count, device))
+        groups.append(unit_caches)
+    return {"len": torch.zeros((), dtype=torch.int32, device=device),
+            "groups": groups}
+
+
+def _decode_block(block, cfg: ModelConfig, x: torch.Tensor, k, v, index,
+                  masked, rope):
+    h = apply_norm(block["norm1"], x, cfg.norm)
+    x = x + attn_mod.decode_attention_into(block["attn"], cfg, h, k, v,
+                                           index, masked, rope)
+    h = apply_norm(block["norm2"], x, cfg.norm)
+    return x + apply_mlp(block["mlp"], h, cfg.mlp)
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict[str, Any], *,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """tokens [B,1] + cache → (logits [B,1,V], a new cache). Each group's
+    stacked K and V are copied once, and every layer writes its row into
+    its slice of the copy; ``cache`` itself is left as it was. The write
+    index, the validity mask and the RoPE tables are made once a step."""
+    b = tokens.shape[0]
+    cache_len = cache["len"]
+    if positions is None:
+        positions = cache_len.reshape(1, 1).expand(b, 1)
+    smax = cache["groups"][0][0]["k"].shape[2]
+    index = attn_mod.write_index(cache_len, smax)
+    masked = attn_mod.decode_mask(cache_len, smax, None)
+    rope = attn_mod.decode_rope(cfg, positions)
+    x = embed_inputs(params, cfg, tokens)
+    layers = iter(params["layers"])
+    new_groups = []
+    for gi, (unit, count) in enumerate(layer_groups(cfg)):
+        for kind in unit:
+            if kind != "attn":
+                raise NotImplementedError(
+                    f"{kind!r} decode units come with their model family "
+                    "(ROADMAP A10)")
+        new = [{"k": c["k"].clone(), "v": c["v"].clone()}
+               for c in cache["groups"][gi]]
+        for ci in range(count):
+            for unit_cache in new:
+                x = _decode_block(next(layers), cfg, x, unit_cache["k"][ci],
+                                  unit_cache["v"][ci], index, masked, rope)
+        new_groups.append(new)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = x @ head.to(x.dtype)
+    return logits, {"len": cache_len + 1, "groups": new_groups}

@@ -26,6 +26,12 @@ def test_port_imports_no_jax_and_no_repro():
         import repro_torch.core.scheduler, repro_torch.configs
         import repro_torch.models, repro_torch.models.transformer
         import repro_torch.examples.mandelbrot_offload
+        import repro_torch.serve, repro_torch.serve.engine
+        import repro_torch.serve.kvpool, repro_torch.serve.batcher
+        import repro_torch.serve.request, repro_torch.serve.stats
+        import repro_torch.dist, repro_torch.dist.step
+        import repro_torch.launch, repro_torch.launch.serve
+        import repro_torch.models.model, repro_torch.models.attention
         bad = sorted(m for m in sys.modules
                      if m.startswith("jax") or m == "repro"
                      or m.startswith("repro."))
@@ -68,6 +74,17 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
             height=8, width=8, max_iter=2, re_min=-2.0, re_max=1.0,
             im_min=-1.0, im_max=1.0)))
         print("model", raises(lambda: Model(get_smoke_config("qwen3-1.7b"))))
+        from repro_torch.launch import serve as launch_serve
+        from repro_torch.serve import PagePool
+        print("launch_serve", raises(lambda: launch_serve.main(
+            ["--arch", "qwen3-1.7b", "--requests", "1", "--steps", "1"])))
+        print("launch_paged", raises(lambda: launch_serve.main(
+            ["--arch", "qwen3-1.7b", "--paged", "--requests", "1",
+             "--steps", "1"])))
+        print("page_pool", raises(lambda: PagePool([((1,), "float32")])))
+        print("asked_launch", launch_serve.main(
+            ["--arch", "qwen3-1.7b", "--requests", "2", "--batch", "2",
+             "--steps", "2", "--device", "cpu"]))
         print("devices", mngr.devices())
         cpu = mngr.find_device(platform="cpu")
         print("cpu", cpu.name, cpu.torch_device)
@@ -80,12 +97,14 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
     assert proc.returncode == 0, proc.stderr
     out = proc.stdout
     for name in ("find_device", "default_device", "spawn", "put", "convert",
-                 "mandelbrot", "model"):
+                 "mandelbrot", "model", "launch_serve", "launch_paged",
+                 "page_pool"):
         assert f"{name} True" in out, out
     assert "devices []" in out
     assert "cpu cpu:0 cpu" in out
     assert "asked [2.0, 2.0]" in out
     assert "system cpu:0" in out
+    assert "asked_launch 0" in out
 
 
 def test_find_device_raises_lookup_error_here():

@@ -525,3 +525,116 @@ def test_smoke_model_prefill_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert _launches()["flash_attention"] - before == cfg.n_layers
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+# ----------------------------------------------------------------------------
+# decode and serving on the card (no kernel of the port is on this path)
+# ----------------------------------------------------------------------------
+def _cache_leaves(cache):
+    import torch.utils._pytree as pytree
+    return pytree.tree_leaves(cache)
+
+
+def test_decode_step_on_the_card_matches_the_cpu(cuda_device):
+    """The smoke model decodes 8 teacher-forced tokens on the card and on
+    the CPU from one set of weights; f32 logits within 2e-4 (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("qwen3-1.7b")
+    model = Model(cfg)
+    assert model.device == cuda_device
+    params = model.init(0)
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = cpu_model.init(0)
+    for a, b in zip(params.parameters(), cpu_params.parameters()):
+        b.copy_(a.cpu())
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32))
+    cache, cpu_cache = model.init_cache(2, 9), cpu_model.init_cache(2, 9)
+    for t in range(8):
+        got, cache = model.decode_step(params, tokens[:, t:t + 1].to(
+            cuda_device), cache)
+        want, cpu_cache = cpu_model.decode_step(cpu_params,
+                                                tokens[:, t:t + 1], cpu_cache)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    assert int(cache["len"]) == 8
+
+
+def test_decode_step_on_the_card_leaves_its_cache(cuda_device):
+    cfg = get_smoke_config("qwen3-1.7b")
+    model = Model(cfg)
+    params = model.init(1)
+    cache = model.init_cache(3, 6)
+    tok = torch.zeros((3, 1), dtype=torch.int32, device=cuda_device)
+    _, cache = model.decode_step(params, tok, cache)
+    leaves = _cache_leaves(cache)
+    before = [t.clone() for t in leaves]
+    a, a_cache = model.decode_step(params, tok + 1, cache)
+    b, b_cache = model.decode_step(params, tok + 1, cache)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(_cache_leaves(a_cache),
+                                                 _cache_leaves(b_cache)))
+    assert all(torch.equal(x, y) for x, y in zip(leaves, before))
+
+
+def test_engine_tokens_equal_the_sync_loop_on_the_card(cuda_device):
+    from repro_torch.launch.serve import run_engine, run_sync
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("qwen3-1.7b")
+    model = Model(cfg)
+    params = model.init(2)
+    prompts = [int(t) for t in np.random.default_rng(9).integers(
+        0, cfg.vocab_size, 4)]
+    run = run_engine(model, params, requests=4, batch=4, steps=12, workers=2,
+                     prompts=prompts, timeout=300)
+    sync = run_sync(model, params, batch=4, steps=12, prompts=prompts)
+    assert [list(r.tokens) for r in run["results"]] == sync["tokens"].tolist()
+    assert run["memref_after"]["transfers"] == \
+        run["memref_before"]["transfers"]
+
+
+def test_paged_engine_tokens_equal_contiguous_on_the_card(cuda_device):
+    from repro_torch.launch.serve import (contiguous_tokens, paged_model,
+                                          run_paged)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("qwen3-1.7b")
+    run = run_paged(cfg, cuda_device, requests=9, batch=4, steps=10,
+                    workers=2, prefill_workers=2, pages=128, timeout=300)
+    assert run["pool"].device == cuda_device
+    prefill_fn, step_fn = paged_model(run["weights"])
+    for p, r in zip(run["prompts"], run["results"]):
+        assert contiguous_tokens(prefill_fn, step_fn, p, 10) == \
+            [int(t) for t in r.tokens]
+    assert run["stats"]["prefix_hits"] > 0
+    for key in ("transfers", "spills"):
+        assert run["memref_after"][key] == run["memref_before"][key]
+    run["pool"].evict_prefixes()
+    assert run["pool"].stats()["pages_live"] == 0
+
+
+def test_pages_written_on_a_side_stream_are_read_in_order(cuda_device):
+    """A page written on another stream (as a prefill worker's thread
+    may) and gathered on the current one: the DeviceRef makes the reader
+    wait for the writer, so the gather sees the written values."""
+    from repro_torch.serve import PagePool, PageTable
+    pool = PagePool([((256,), torch.float32)], page_tokens=16,
+                    max_pages=8, device=cuda_device)
+    side = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)       # hold the side stream
+        entries = torch.arange(40 * 256, dtype=torch.float32,
+                               device=cuda_device).reshape(40, 256)
+        pages, length = pool.write_pages([entries])
+    assert all(p.refs[0]._stream == side for p in pages)
+    table = PageTable(pool, pages=pages, length=length)
+    (got,) = table.gather()                 # on the default stream
+    want = torch.arange(40 * 256, dtype=torch.float32).reshape(40, 256)
+    assert torch.equal(got[:40].cpu(), want)
+    table.release_pages()
+
+
+def test_launch_serve_binds_the_card(cuda_device, capsys):
+    from repro_torch.launch import serve as launch_serve
+    assert launch_serve.main(["--arch", "qwen3-1.7b", "--requests", "4",
+                              "--batch", "4", "--steps", "4"]) == 0
+    assert "tok/s" in capsys.readouterr().out

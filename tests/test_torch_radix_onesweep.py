@@ -121,13 +121,21 @@ def test_radix_sort_matches_the_jax_oracle_at_a_ragged_length(bits):
 @pytest.mark.parametrize("layout", ["int64", "float32", "rows"])
 def test_radix_sort_payloads_carried_or_gathered(layout):
     """A 1-d payload of 32-bit words rides through the passes; any other
-    is gathered at the end by the carried index. Both equal numpy's
-    stable order."""
+    1-d payload is gathered at the end by the carried index. Both equal
+    numpy's stable order. A payload of rows is refused on both paths
+    (``tests/test_torch_faults.py`` states the JAX package's flattened
+    result it differs from)."""
     rng = np.random.default_rng(7)
     keys = rng.integers(0, 1000, 2000).astype(np.uint32)
     vals = {"int64": rng.integers(-2 ** 62, 2 ** 62, 2000),
             "float32": rng.standard_normal(2000).astype(np.float32),
             "rows": rng.integers(0, 9, (2000, 3)).astype(np.int32)}[layout]
+    if layout == "rows":
+        for impl in ("auto", "ref"):
+            with pytest.raises(ValueError, match="1-d payload"):
+                ops.radix_sort(torch.from_numpy(keys), torch.from_numpy(vals),
+                               impl=impl)
+        return
     k, v = ops.radix_sort(torch.from_numpy(keys), torch.from_numpy(vals))
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(k.numpy(), keys[order])

@@ -3,13 +3,30 @@
     python3 tools/profile_main_path.py
 
 Runs each main-path phase of ``chip_smoke.py``, built by that script's own
-phase builders at its shapes, once to warm up, then once
-under ``torch.profiler`` and once more timed by the host clock (ending in
-``torch.cuda.synchronize()``). For each phase it prints the wall time,
-the device's busy time (the union of the intervals in which a kernel or a
-copy ran on the card), its idle share, and the device operations that
-took the most time. The last line is one JSON object with the same
-numbers. Needs a CUDA card; exits with code 2 without one.
+phase builders at its shapes, once to warm up, then once under
+``torch.profiler``, then three times more timed by the host clock (each
+ending in ``torch.cuda.synchronize()``; the median is kept). For each
+phase it prints the wall time, the device's busy time (the union of the
+intervals in which a kernel or a copy ran on the card), its idle share,
+and the device operations that took the most time. The serve phases run one batch
+(``chip_smoke.SERVE_BATCH`` requests x ``chip_smoke.SERVE_PROFILE_STEPS``
+tokens) at qwen3-1.7b's full width, with the prefill phase's random bf16
+weights, through each layer that the engine adds to a decode step:
+
+* ``serve step enqueue``: ``serve_step`` back to back, the card
+  synchronised only at the end (the host's rate of issuing a step);
+* ``serve sync loop``: the static-batch loop, the tokens read back after
+  every step; with the host's side of the step (PyTorch calls and their
+  CPU time); then the same loop on a new Python thread;
+* ``serve decode worker``: the engine's decode behavior, called on this
+  thread with the launcher's ``engine_fns``, caches carried as
+  ``DeviceRef``\\ s;
+* ``serve engine``: ``run_engine`` (actor hop, ``ChunkScheduler``, worker
+  threads); then the paged engine at qwen3-1.7b's widths.
+
+Serve rows also give the wall a step (``ms_a_step``). The last line is
+one JSON object with the same numbers. Needs a CUDA card; exits with
+code 2 without one.
 """
 from __future__ import annotations
 
@@ -17,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -30,37 +48,31 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 TOP = 8
+ROUNDS = 3          # timed calls a phase; the row gives their median
 
 
-def _busy_us(events) -> float:
-    """Length of the union of the device intervals among ``events``."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == DeviceType.CUDA)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
-
-
-def _phase(name: str, fn) -> dict:
+def _phase(name: str, fn, host: bool = False, steps: int = 0) -> dict:
+    """Profile ``fn`` once (after a warm-up call), then time ``ROUNDS``
+    more calls and keep their median wall.
+    With ``steps`` the row also gets the timed wall over that many decode
+    steps. With ``host`` it also gets the host's side: the PyTorch calls
+    that took the most CPU time in themselves, with their counts, and
+    the CPU time of all of them together (calls made on this thread
+    only: the profiler does not see an actor's worker threads)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(walls)[ROUNDS // 2]
     events = prof.events()
-    busy_ms = _busy_us(events) / 1e3
+    busy_ms = smoke.device_busy_ms(events)
     by_name: dict = {}
     for e in events:
         if e.device_type == DeviceType.CUDA:
@@ -69,10 +81,26 @@ def _phase(name: str, fn) -> dict:
     row = {"phase": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "top_device_ops_ms": [[n[:80], us / 1e3] for n, us in top]}
+    if steps:
+        row["ms_a_step"] = wall_ms / steps
     print(f"{name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-          f"idle share {row['idle_share']:.3f}", flush=True)
+          f"idle share {row['idle_share']:.3f}"
+          + (f", {wall_ms / steps:.3f} ms a step" if steps else ""),
+          flush=True)
     for n, us in top:
         print(f"    {us / 1e3:9.3f} ms  {n[:100]}", flush=True)
+    if host:
+        ops = [a for a in prof.key_averages() if a.key.startswith("aten::")
+               or a.key.startswith("cuda")]
+        ops.sort(key=lambda a: -a.self_cpu_time_total)
+        total = sum(a.self_cpu_time_total for a in ops) / 1e3
+        row["host_calls_self_ms"] = total
+        row["top_host_ops_ms"] = [[a.key[:80], a.self_cpu_time_total / 1e3,
+                                   a.count] for a in ops[:TOP]]
+        print(f"    host: {total:.3f} ms of CPU time inside PyTorch and CUDA "
+              "calls (profiled run)", flush=True)
+        for key, ms, count in row["top_host_ops_ms"]:
+            print(f"    {ms:9.3f} ms  {count:7d} x {key}", flush=True)
     return row
 
 
@@ -130,10 +158,76 @@ def main() -> int:
                            lambda: mapped.ask(x_ref)))
         x_ref.release()
 
-    _, model, params, tokens = smoke.prefill_model(rng, dev)
+    cfg, model, params, tokens = smoke.prefill_model(rng, dev)
     rows.append(_phase(
         f"qwen3-1.7b prefill {smoke.PREFILL_B}x{smoke.PREFILL_S} bf16",
         lambda: model.forward(params, {"tokens": tokens})))
+
+    import torch.utils._pytree as pytree
+    from repro_torch.core.memref import tree_wrap
+    from repro_torch.dist.step import build_serve_step
+    from repro_torch.launch.serve import (engine_fns, run_engine, run_paged,
+                                          run_sync)
+    from repro_torch.serve import make_decode_worker
+    n, steps = smoke.SERVE_BATCH, smoke.SERVE_PROFILE_STEPS
+    capacity = steps + 1
+    kw = dict(batch=smoke.SERVE_BATCH, workers=smoke.SERVE_WORKERS)
+    serve_step = build_serve_step(model)
+
+    def enqueue():
+        cache = model.init_cache(n, capacity)
+        tok = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+        for _ in range(steps):
+            tok, _, cache = serve_step(params, cache, tok)
+    rows.append(_phase(f"serve step enqueue qwen3-1.7b bf16 {n}x{steps}",
+                       enqueue, steps=steps))
+
+    def sync_loop():
+        run_sync(model, params, batch=n, steps=steps)
+    rows.append(_phase(f"serve sync loop qwen3-1.7b bf16 {n}x{steps}",
+                       sync_loop, host=True, steps=steps))
+
+    def on_thread():
+        t = threading.Thread(target=sync_loop)
+        t.start()
+        t.join()
+    rows.append(_phase(f"serve sync loop on a new thread {n}x{steps}",
+                       on_thread, steps=steps))
+
+    step_fn, combine, split = engine_fns(model, params, capacity)
+    decode = make_decode_worker(step_fn, combine=combine, split=split,
+                                device=dev)
+
+    def worker():
+        rows_in = []
+        for _ in range(n):
+            leaves, treedef = pytree.tree_flatten(
+                tree_wrap(model.init_cache(1, capacity), device=dev))
+            rows_in.append(tuple(leaves))
+        toks = (0,) * n
+        for _ in range(steps):
+            out, rows_out = decode("step", toks, tuple(rows_in), treedef)
+            for ref in (r for row in rows_in for r in row):
+                ref.release()
+            rows_in, toks = rows_out, tuple(int(t) for t in out)
+        for ref in (r for row in rows_in for r in row):
+            ref.release()
+    rows.append(_phase(f"serve decode worker {n}x{steps}", worker,
+                       steps=steps))
+    rows.append(_phase(
+        f"serve engine qwen3-1.7b bf16 {n}x{steps} batch {n}",
+        lambda: run_engine(model, params, requests=n, steps=steps, **kw),
+        steps=steps))
+    del model, params
+    torch.cuda.empty_cache()
+
+    def paged():
+        run = run_paged(cfg, dev, requests=n, steps=steps,
+                        prefill_workers=smoke.SERVE_PREFILL_WORKERS,
+                        pages=smoke.SERVE_PAGES, **kw)
+        run["pool"].evict_prefixes()
+    rows.append(_phase(f"serve paged qwen3-1.7b widths {n}x{steps} batch {n}",
+                       paged, steps=steps))
     print(json.dumps({"card": card, "phases": rows}), flush=True)
     return 0
 
