@@ -28,10 +28,11 @@ port's main path through the entry points a user calls:
 * the qwen3-1.7b prefill forward at full width (28 layers, random bf16
   weights from a seed, 2 x 2048 tokens) with the flash-attention kernel,
   against the same forward with the plain attention, and an f32 forward
-  at 512 tokens. B6's bf16 kernel is also timed against SDPA at the
-  prefill's own launch shape, and its registers, spills and shared memory
-  are printed. B6's f32 kernel is timed against SDPA in f32 at the layer
-  shape;
+  at 1 x 512 tokens (a phase of its own: 28 launches of B6's f32 kernel).
+  B6's bf16 kernel is also timed against SDPA at the prefill's own launch
+  shape, and its registers, spills and shared memory are printed. B6's f32
+  kernel is timed against SDPA in f32 (device time and host time a call)
+  at the layer shape and at the f32 prefill's own launch shape;
 * serving at qwen3-1.7b's full width with the prefill phase's random
   bf16 weights (``repro_torch.launch.serve``): 32 requests x 64 greedy
   tokens through ``ServeEngine`` (batch 8, 2 workers), with tok/s,
@@ -153,6 +154,8 @@ PREFILL_B, PREFILL_S, PREFILL_F32_S = 2, 2048, 512
 #: prefill phase's own launch (PREFILL_B x PREFILL_S)
 FA_LAYER = (FA_B, FA_H, FA_HKV, FA_S, FA_S, FA_D)
 FA_PREFILL = (PREFILL_B, FA_H, FA_HKV, PREFILL_S, PREFILL_S, FA_D)
+#: B6's f32 shape at the f32 prefill's own launch (1 x PREFILL_F32_S)
+FA_PREFILL_F32 = (1, FA_H, FA_HKV, PREFILL_F32_S, PREFILL_F32_S, FA_D)
 #: kernel vs plain attention through 28 bf16 layers: the plain path rounds
 #: the probabilities to bf16 before P.V and the kernel does not, so the
 #: residual streams drift apart by bf16 rounding compounded over the
@@ -612,7 +615,10 @@ def main() -> int:
     from repro_torch.kernels import (FLASH_ATTENTION, KERNELS, LOCAL_COMPACT,
                                      MANDELBROT, MATMUL, RADIX_PASS,
                                      WAH_INTERLEAVE, build_all, ops, ref)
-    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+    from repro_torch.kernels.build import device_sm_count
+    from repro_torch.kernels.flash_attention import (F32_QUERY_TILES,
+                                                     HEAD_DIMS,
+                                                     f32_query_tile,
                                                      flash_attention,
                                                      kernel_info)
     from repro_torch.kernels.mandelbrot import mandelbrot as mandelbrot_kernel
@@ -636,14 +642,23 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     log(f"built {len(KERNELS)} kernels in {build_all(KERNELS):.2f} s")
+    fa_info = []
     for d in HEAD_DIMS:
         info = kernel_info(d)
         log(f"flash_attention bf16 kernel, head dim {d}: {info['registers']} "
             f"registers a thread at launch, {info['spill_bytes']} spill "
             f"bytes, {info['smem_bytes']} bytes of shared memory a block; "
             f"P.V: {info['pv']}")
-        check(info["spill_bytes"] == 0,
-              f"flash_attention bf16 kernel (head dim {d}) spills")
+        fa_info.append(info)
+        for tile in F32_QUERY_TILES:
+            info = kernel_info(d, torch.float32, tile)
+            log(f"flash_attention f32 kernel, head dim {d}, {tile}-row query "
+                f"tile: {info['registers']} registers a thread, "
+                f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} "
+                "bytes of shared memory a block")
+            fa_info.append(info)
+    for info in fa_info:
+        check(info["spill_bytes"] == 0, f"flash_attention kernel {info} spills")
     mm_info = matmul_kernel_info()
     for info in mm_info:
         log(f"matmul kernel {info['kernel']}: {info['registers']} registers "
@@ -941,12 +956,13 @@ def main() -> int:
 
     def fa_bound_ms(q, k, v):
         """Causal attention's least time: 4·B·H·Sq·Skv·D / 2 operations at
-        the bf16 tensor-core peak against each input read and the output
-        written once."""
+        the peak of q's dtype (bf16: the tensor cores; f32: the SIMT FMA
+        pipes) against each input read and the output written once."""
         b, h, s, d = q.shape
+        peak = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
         return max(bytes_ms(q.element_size() * (2 * q.numel() + k.numel() +
                                                 v.numel())),
-                   ops_ms(4.0 * b * h * s * s * d / 2, BF16_FLOPS))
+                   ops_ms(4.0 * b * h * s * s * d / 2, peak))
 
     def sdpa(q, k, v):
         return torch.nn.functional.scaled_dot_product_attention(
@@ -961,7 +977,7 @@ def main() -> int:
         bound_ms=fa_bound_ms(q, k, v), bound_by="operations",
         library_ms=cuda_ms(lambda: sdpa(q, k, v), 10),
         library="F.scaled_dot_product_attention(is_causal=True, "
-                "enable_gqa=True), bf16")
+                "enable_gqa=True), bf16", instantiations=fa_info)
     # bf16 at both shapes over several seeds, in bf16 steps: the layer
     # shape and the prefill's own launch, PREFILL_B x 16 (8 KV) heads x
     # PREFILL_S^2 x 128, causal
@@ -1022,27 +1038,41 @@ def main() -> int:
     log(f"flash_attention bf16: {prefill_shape['host_us']:.1f} us of host "
         "work a call (wrapper, custom op, tensor maps, launch); SDPA "
         f"{prefill_shape['library_host_us']:.1f} us")
-    # the f32 (SIMT) kernel at the layer shape, against SDPA in f32 with
-    # TF32 off; its bound is the f32 SIMT peak
-    q, k, v = attention_inputs(
-        FA_LAYER, torch.float32, torch.Generator(device=dev).manual_seed(0),
-        dev)
-    b_, h_, s_, d_ = q.shape
-    f32_row = dict(
-        shape=list(FA_LAYER), max_abs_err=fa_err[f"f32 causal S={FA_S}"],
-        ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 5),
-        plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True),
-                         3),
-        bound_ms=max(bytes_ms(4 * (2 * q.numel() + k.numel() + v.numel())),
-                     ops_ms(4.0 * b_ * h_ * s_ * s_ * d_ / 2, F32_FLOPS)),
-        library_ms=cuda_ms(lambda: sdpa(q, k, v), 5),
-        library="F.scaled_dot_product_attention, f32 (TF32 off)")
-    rows["flash_attention"]["f32"] = f32_row
-    log(f"flash_attention f32 causal {FA_B}x{FA_H}({FA_HKV})x{FA_S}^2x{FA_D}:"
-        f" kernel {f32_row['ms']:.4f} ms, plain {f32_row['plain_ms']:.4f} ms,"
-        f" SDPA {f32_row['library_ms']:.4f} ms"
-        f", bound {f32_row['bound_ms']:.4f} ms (f32 SIMT peak)")
-    del q, k, v
+    # the f32 (SIMT) kernel at the layer shape and at the f32 prefill's own
+    # launch, against SDPA in f32 with TF32 off; its bound is the f32 SIMT
+    # peak
+    for key, shape, reps in (("f32", FA_LAYER, 5),
+                             ("f32_prefill_shape", FA_PREFILL_F32, 20)):
+        q, k, v = attention_inputs(
+            shape, torch.float32, torch.Generator(device=dev).manual_seed(0),
+            dev)
+        got = flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention(q, k, v, causal=True)
+        check(torch.allclose(got, want, rtol=FA_F32_TOL, atol=FA_F32_TOL),
+              f"flash_attention f32 {shape} disagrees beyond {FA_F32_TOL}")
+        r = dict(
+            shape=list(shape), max_abs_err=max_abs_err(got, want),
+            query_tile=f32_query_tile(shape[0], shape[1], shape[3],
+                                      device_sm_count(dev.index)),
+            ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps),
+            plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v,
+                                                         causal=True), 3),
+            bound_ms=fa_bound_ms(q, k, v),
+            library_ms=cuda_ms(lambda: sdpa(q, k, v), reps),
+            library="F.scaled_dot_product_attention, f32 (TF32 off)",
+            host_us=host_us(lambda: flash_attention(q, k, v, causal=True),
+                            20),
+            library_host_us=host_us(lambda: sdpa(q, k, v), 20))
+        rows["flash_attention"][key] = r
+        b_, h_, hkv_, s_, _, d_ = shape
+        log(f"flash_attention f32 causal {b_}x{h_}({hkv_})x{s_}^2x{d_} "
+            f"({r['query_tile']}-row tiles): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (f32 SIMT peak; "
+            f"{r['bound_ms'] / r['ms']:.3f} of it reached); host "
+            f"{r['host_us']:.1f} us a call, SDPA {r['library_host_us']:.1f};"
+            f" max_abs_err {r['max_abs_err']} (tol {FA_F32_TOL})")
+        del q, k, v, got, want
     torch.cuda.empty_cache()
 
     # -- main path --------------------------------------------------------------
@@ -1234,7 +1264,11 @@ def main() -> int:
     model32 = Model(cfg32, attn_impl="kernel", device=dev)
     params32 = model32.init(0)
     tokens32 = tokens[:1, :PREFILL_F32_S]
-    got32, _ = model32.forward(params32, {"tokens": tokens32})
+    model32.forward(params32, {"tokens": tokens32})    # warm up
+    got32, _ = run_phase(
+        f"qwen3-1.7b prefill 1x{PREFILL_F32_S} f32", ["flash_attention"],
+        lambda: model32.forward(params32, {"tokens": tokens32}),
+        {"flash_attention_f32": cfg.n_layers})
     want32, _ = Model(cfg32, attn_impl="ref", device=dev).forward(
         params32, {"tokens": tokens32})
     err32 = max_abs_err(got32, want32)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -26,7 +27,8 @@ import time
 from pathlib import Path
 from typing import Counter, Dict, Iterable, Optional, Sequence, Tuple
 
-__all__ = ["CudaKernel", "build_all", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["CudaKernel", "build_all", "device_sm_count", "BUILD_DIR",
+           "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -47,6 +49,14 @@ def _cuda_tool(name: str) -> str:
 
 def _nvcc() -> str:
     return _cuda_tool("nvcc")
+
+
+@functools.lru_cache(maxsize=None)
+def device_sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (kernels size
+    their grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _SASS_FUNCTION = re.compile(r"Function : (\S+)")

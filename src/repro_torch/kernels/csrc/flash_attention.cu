@@ -1,5 +1,5 @@
 // Attention forward with an online softmax (flash attention): bf16 on the
-// Hopper tensor cores, f32 on the SIMT pipes.
+// Hopper tensor cores, f32 on the SIMT FMA pipes.
 //
 // Replaces the JAX package's kernels/flash_attention.py::
 // pallas_flash_attention (body _fa_kernel): grid (B, H, Sq/bq, Skv/bk)
@@ -12,9 +12,10 @@
 // What bounds it on an H100: 4*Sq*Skv*D operations per (batch, head)
 // (halved when causal) against about 4*S*D*bytes moved, so at prefill
 // lengths it is bound by operations, which only the tensor cores (wgmma)
-// run at the card's rate. Both kernels below share the TPU kernel's plan:
-// the sequential key axis becomes a loop inside one block per (batch,
-// head, query tile), between the first and last key tile the masks reach.
+// run at the card's rate (f32 is held to the SIMT pipes: below). Both
+// kernels below share the TPU kernel's plan: the sequential key axis
+// becomes a loop inside one block per (batch, head, query tile), between
+// the first and last key tile the masks reach.
 // Fully masked rows: m stays -inf, exp is taken against 0, so P and l
 // stay 0 and the row's output is 0 (the TPU kernel's l == 0 rule; the JAX
 // oracle would give NaN). Ragged Sq and Skv are masked in the kernels, so
@@ -46,17 +47,41 @@
 //     about 1.4x faster on an H100 but read four times the error at the
 //     qwen3-1.7b layer shape, so it is not built.
 //
-// f32 (flash_attention_f32): IEEE f32 on the SIMT pipes (tests hold it to
-// 2e-4; wgmma has no IEEE f32 mode). One 256-thread block per (batch,
-// head, 64-query tile) over 64-key tiles. Per tile:
-//   1. K^T is staged in shared memory (f32), Q^T stays there all along;
-//   2. each thread computes a 4x4 tile of S = Q K^T * scale and masks it
-//      (-inf), writing it transposed to shared memory;
-//   3. four threads per query row reduce the row's max and sum with warp
-//      shuffles and turn S into P = exp(S - m_new); while they do, V
-//      replaces K in the same buffer;
-//   4. each thread rescales its 4 x D/16 slice of the accumulator by
-//      alpha = exp(m_prev - m_new) and adds P V.
+// f32 (flash_attention_f32): IEEE f32 on the SIMT FMA pipes (tests hold it
+// to 2e-4; wgmma has no IEEE f32 mode), so the ceiling is their 67
+// TFLOP/s. The design keeps them fed:
+//   * one 256-thread block per (head, batch, query tile), tiles launched
+//     last-first; the tile is 128 rows, or 64 where a grid of 128-row
+//     tiles would not give every SM a block (the wrapper's
+//     f32_query_tile: the 1 x 16-head x 512 f32 prefill);
+//   * Q, K and V stay as they lie in memory, rows of D at a pitch of D + 4
+//     floats: both operands of S = Q K^T run along D, so no transposing
+//     scatter. Q is copied once; K and V tiles of 64 keys by cp.async,
+//     16 bytes a thread (4 bytes a thread for an operand whose base or
+//     strides are off 16 bytes), issued a phase ahead: V(t) lands under
+//     S(t), K(t + 1) under P V(t). One K and one V buffer: two of each
+//     would not fit beside Q and P at D = 128;
+//   * register tiles: thread (ty, tx) of 16 x 16 holds rows ty + 16 i of
+//     the tile (8, or 4 at 64 rows), keys tx + 16 j of S (4) and columns
+//     64 g + 4 tx + c of O (8 at D = 128), so a row's keys lie in the 16
+//     lanes of one half-warp, each warp load is a broadcast or 16
+//     neighbouring float4, and a key tile costs a thread 8192 FFMAs
+//     against 640 shared-memory loads;
+//   * the online softmax in registers: row max and sum by shuffles in
+//     the half-warp, exp2 with log2(e) folded into the scale, masks only
+//     on tiles that cross the diagonal, the window edge or Skv; P goes to
+//     shared memory once (pitch 80, so two rows of a warp's stores land
+//     in disjoint banks) and is read as float4 for P V. Two barriers a
+//     key tile;
+//   * one block an SM (254 registers a thread at D = 128). Tried on the
+//     H100 and dropped: unrolling the S loop by 2, 4, 8 or 32 and the P V
+//     loop by 2, 8 or 16 (the same or up to 5 % slower than 16 and 4), and
+//     512 threads with 4 rows a thread (128 registers, 13 % slower).
+// Tests: on the CPU, tests/test_torch_flash_layout.py holds the wrapper's
+// choices (copy width, query tile) on meta tensors; on the card,
+// tests/test_torch_cuda.py holds the kernel to the plain version within
+// 2e-4 (ragged, masked, GQA, unaligned, both tiles, every head dim), bit
+// for bit from one launch to the next, and without spills.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -68,80 +93,98 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr int QPAD = BQ + 4;  // keeps float4 alignment, spreads banks
-constexpr int KPAD = BK + 4;
+// ---------------------------------------------------------------------------
+// f32: cp.async ring, register-tiled S and O, softmax in registers
+// ---------------------------------------------------------------------------
+namespace simt {
 
-template <int D>
-struct Smem {
-  static constexpr int CD = D / 16;                 // output cols a thread owns
-  static constexpr int VPAD = D + 4;
-  static constexpr int Q = D * QPAD;                // Q^T [D][QPAD]
-  static constexpr int KV = (D * KPAD > BK * VPAD) ? D * KPAD : BK * VPAD;
-  static constexpr int P = BK * QPAD;               // P^T [BK][QPAD]
-  static constexpr int FLOATS = Q + KV + P + 3 * BQ;
-  static constexpr int BYTES = FLOATS * 4;
+constexpr int THREADS = 256;  // 16 x 16: ty picks rows, tx keys or columns
+constexpr int BK = 64;        // keys a tile
+constexpr int KJ = BK / 16;   // keys of S a thread holds: tx + 16 j
+
+template <int D, int BQ>
+struct Cfg {
+  static constexpr int R = BQ / 16;                // rows a thread: ty + 16 i
+  static constexpr int CW = D >= 64 ? 4 : D / 16;  // columns of O in a group
+  static constexpr int CG = D / (16 * CW);         // groups, 16 CW apart
+  static constexpr int NC = CW * CG;               // columns of O a thread
+  static constexpr int RP = D + 4;                 // row pitch of Q, K, V
+  static constexpr int PP = BK + 16;               // row pitch of P
+  static constexpr int Q_FLOATS = BQ * RP;
+  static constexpr int KV_FLOATS = BK * RP;
+  static constexpr int SMEM = (Q_FLOATS + 2 * KV_FLOATS + BQ * PP) * 4;
+  static_assert(CW == 4 || CW == 1, "a column group is a float4 or a float");
+  static_assert(BQ * D % (4 * THREADS) == 0 && BK * D % (4 * THREADS) == 0,
+                "every thread copies whole 16-byte chunks of each tile");
 };
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  long long qs[3];  // strides of q over (batch, head, seq), in elements
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;          // [B, H, Sq, D], contiguous
+  long long qs[3];     // strides of q over (batch, head, seq), in elements
   long long ks[3];
   long long vs[3];
   int h, group, sq, skv;
   int causal, window;  // window <= 0: none
-  float scale;
+  int vec;             // bit 0: q, 1: k, 2: v are copied 16 bytes a thread
+  float scale_log2;    // scale * log2(e)
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_attention_kernel(Params p) {
-  using S = Smem<D>;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                // [D][QPAD]
-  float* kv = qs + S::Q;           // K^T [D][KPAD], then V [BK][VPAD]
-  float* ps = kv + S::KV;          // [BK][QPAD]
-  float* m_s = ps + S::P;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
+// Rows r0 .. r0 + ROWS - 1 of an operand whose rows of D floats lie `ld`
+// elements apart, into shared memory at dst with a row pitch of D + 4
+// floats; rows at or past n are zero-filled. vec: 16-byte copies (base
+// and pitch on 16 bytes), else 4-byte copies.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* g,
+                                          long long ld, int r0, int n,
+                                          bool vec) {
+  constexpr int RP = D + 4;
+  if (vec) {
+    constexpr int CH = D / 4;  // 16-byte chunks a row
+#pragma unroll
+    for (int it = 0; it < ROWS * CH / THREADS; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      const int r = e / CH;
+      const int c = (e % CH) * 4;
+      const bool in = r0 + r < n;
+      cp_async16(dst + (r * RP + c) * 4, in ? g + (r0 + r) * ld + c : g,
+                 in ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < ROWS * D / THREADS; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      const int r = e / D;
+      const int c = e % D;
+      const bool in = r0 + r < n;
+      cp_async4(dst + (r * RP + c) * 4, in ? g + (r0 + r) * ld + c : g,
+                in ? 4 : 0);
+    }
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const int hh = blockIdx.y;
-  const int bb = blockIdx.z;
+template <int D, int BQ>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_f32_kernel(const Params p) {
+  using C = Cfg<D, BQ>;
+  extern __shared__ float4 smem_f4[];
+  float* qs = reinterpret_cast<float*>(smem_f4);  // [BQ][RP]
+  float* ks = qs + C::Q_FLOATS;                   // [BK][RP]
+  float* vs = ks + C::KV_FLOATS;                  // [BK][RP]
+  float* ps = vs + C::KV_FLOATS;                  // [BQ][PP]
+  const uint32_t qs_a = smem_addr(qs);
+  const uint32_t ks_a = smem_addr(ks);
+  const uint32_t vs_a = smem_addr(vs);
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int hh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest tiles first
   const int hk = hh / p.group;
   const int pos_offset = p.skv - p.sq;
-
-  const float* qg =
-      static_cast<const float*>(p.q) + bb * p.qs[0] + hh * p.qs[1];
-  const float* kg =
-      static_cast<const float*>(p.k) + bb * p.ks[0] + hk * p.ks[1];
-  const float* vg =
-      static_cast<const float*>(p.v) + bb * p.vs[0] + hk * p.vs[1];
-
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D;
-    const int d = e % D;
-    qs[d * QPAD + r] =
-        (q0 + r < p.sq) ? qg[(q0 + r) * p.qs[2] + d] : 0.f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
-
-  float acc[4][S::CD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < S::CD; ++c) acc[i][c] = 0.f;
 
   // key tiles the masks can reach from this query tile
   const int q_first = q0 + pos_offset;
@@ -151,182 +194,219 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Params p) {
   int k_begin = 0;
   if (p.window > 0) k_begin = max(0, q_first - p.window + 1);
   k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    // 1. K^T tile
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int j = e / D;
-      const int d = e % D;
-      kv[d * KPAD + j] =
-          (k0 + j < p.skv) ? kg[(k0 + j) * p.ks[2] + d] : 0.f;
-    }
-    __syncthreads();
-
-    // 2. S = Q K^T * scale, masked, stored transposed
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qs[d * QPAD + ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&kv[d * KPAD + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kpos = k0 + tx * 4 + j;
-      float col[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qpos = q0 + ty * 4 + i + pos_offset;
-        bool keep = kpos < p.skv;
-        if (p.causal) keep = keep && kpos <= qpos;
-        if (p.window > 0) keep = keep && kpos > qpos - p.window;
-        col[i] = keep ? s[i][j] * p.scale : -INFINITY;
-      }
-      *reinterpret_cast<float4*>(&ps[(tx * 4 + j) * QPAD + ty * 4]) =
-          make_float4(col[0], col[1], col[2], col[3]);
-    }
-    __syncthreads();
-
-    // 3a. V tile into the K buffer (K is no longer read)
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int j = e / D;
-      const int d = e % D;
-      kv[j * S::VPAD + d] =
-          (k0 + j < p.skv) ? vg[(k0 + j) * p.vs[2] + d] : 0.f;
-    }
-    // 3b. online softmax: four neighbouring lanes per row
-    {
-      const int r = tid / 4;
-      const int part = tid % 4;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < BK / 4; ++jj)
-        mx = fmaxf(mx, ps[(jj * 4 + part) * QPAD + r]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < BK / 4; ++jj) {
-        float* at = &ps[(jj * 4 + part) * QPAD + r];
-        const float e = expf(*at - m_use);
-        *at = e;
-        sum += e;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_use);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // 4. acc = acc * alpha + P V
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) alpha[i] = a_s[ty * 4 + i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < S::CD; ++c) acc[i][c] *= alpha[i];
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 pv = *reinterpret_cast<const float4*>(&ps[j * QPAD + ty * 4]);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-      float vv[S::CD];
-      const float* vrow = &kv[j * S::VPAD + tx * S::CD];
-      if constexpr (S::CD % 4 == 0) {
-#pragma unroll
-        for (int c = 0; c < S::CD; c += 4) {
-          const float4 t = *reinterpret_cast<const float4*>(vrow + c);
-          vv[c] = t.x;
-          vv[c + 1] = t.y;
-          vv[c + 2] = t.z;
-          vv[c + 3] = t.w;
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < S::CD; ++c) vv[c] = vrow[c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < S::CD; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
-    }
-    __syncthreads();
+  const float* qg = p.q + bb * p.qs[0] + hh * p.qs[1];
+  const float* kg = p.k + bb * p.ks[0] + hk * p.ks[1];
+  const float* vg = p.v + bb * p.vs[0] + hk * p.vs[1];
+  if (n_tiles > 0) {
+    load_rows<D, BQ>(qs_a, qg, p.qs[2], q0, p.sq, p.vec & 1);
+    load_rows<D, BK>(ks_a, kg, p.ks[2], k_begin, p.skv, p.vec & 2);
+    cp_async_commit();
   }
 
-  float* og = static_cast<float*>(p.out) +
-              (static_cast<long long>(bb) * p.h + hh) *
-                  static_cast<long long>(p.sq) * D;
+  float o[C::R][C::NC];
+  float m[C::R];
+  float l[C::R];  // this thread's keys only, until the end
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r >= p.sq) continue;
-    const float l = l_s[r];
-    const float inv = (l == 0.f) ? 0.f : 1.f;
-    const float denom = (l == 0.f) ? 1.f : l;
+  for (int i = 0; i < C::R; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < S::CD; ++c)
-      og[static_cast<long long>(q0 + r) * D + tx * S::CD + c] =
-          inv * (acc[i][c] / denom);
+    for (int c = 0; c < C::NC; ++c) o[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // K(t) (and Q) have landed; V and P are free
+    load_rows<D, BK>(vs_a, vg, p.vs[2], k0, p.skv, p.vec & 4);
+    cp_async_commit();  // V(t) lands under S(t)
+
+    // S = Q K^T: rows ty + 16 i, keys tx + 16 j, both along D in shared
+    // memory as they lie
+    float s[C::R][KJ];
+#pragma unroll
+    for (int i = 0; i < C::R; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < D; d += 4) {
+      float4 kf[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * C::RP +
+                                                 d);
+#pragma unroll
+      for (int i = 0; i < C::R; ++i) {
+        const float4 qf =
+            *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * C::RP + d);
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < C::R; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] *= p.scale_log2;
+    // masks, only where the tile crosses Skv, the diagonal or the window
+    const bool edge = k0 + BK > p.skv || (p.causal && k0 + BK - 1 > q_first) ||
+                      (p.window > 0 && k0 <= q_last - p.window);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < C::R; ++i) {
+        const int qpos = q0 + ty + 16 * i + pos_offset;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const int kpos = k0 + tx + 16 * j;
+          bool keep = kpos < p.skv;
+          if (p.causal) keep = keep && kpos <= qpos;
+          if (p.window > 0) keep = keep && kpos > qpos - p.window;
+          if (!keep) s[i][j] = -INFINITY;
+        }
+      }
+    }
+
+    // online softmax in base 2: a row's keys lie in the 16 lanes of one
+    // half-warp; P goes to shared memory once
+#pragma unroll
+    for (int i = 0; i < C::R; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < KJ; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = 1; off < 16; off *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+      const float alpha = exp2f(m[i] - m_use);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < C::NC; ++c) o[i][c] *= alpha;
+      float* prow = ps + (ty + 16 * i) * C::PP + tx;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const float e = exp2f(s[i][j] - m_use);
+        l[i] += e;
+        prow[16 * j] = e;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // V(t) has landed and P is written; K(t) is free
+    if (t + 1 < n_tiles)
+      load_rows<D, BK>(ks_a, kg, p.ks[2], k0 + BK, p.skv, p.vec & 2);
+    cp_async_commit();  // K(t + 1) lands under P V(t)
+
+    // O += P V: rows ty + 16 i, columns 16 CW g + CW tx + c
+#pragma unroll 4
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pf[C::R];
+#pragma unroll
+      for (int i = 0; i < C::R; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * C::PP +
+                                                 kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vrow = vs + (kk + u) * C::RP + tx * C::CW;
+        float vv[C::NC];
+#pragma unroll
+        for (int g = 0; g < C::CG; ++g) {
+          if constexpr (C::CW == 4) {
+            const float4 w =
+                *reinterpret_cast<const float4*>(vrow + g * 16 * C::CW);
+            vv[4 * g] = w.x;
+            vv[4 * g + 1] = w.y;
+            vv[4 * g + 2] = w.z;
+            vv[4 * g + 3] = w.w;
+          } else {
+            vv[g] = vrow[g * 16];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < C::R; ++i) {
+          const float pv = part(pf[i], u);
+#pragma unroll
+          for (int c = 0; c < C::NC; ++c) o[i][c] = fmaf(pv, vv[c], o[i][c]);
+        }
+      }
+    }
+  }
+
+  float* og = p.out + (static_cast<long long>(bb) * p.h + hh) *
+                          static_cast<long long>(p.sq) * D;
+#pragma unroll
+  for (int i = 0; i < C::R; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off *= 2)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + ty + 16 * i;
+    if (row >= p.sq) continue;
+    const float inv = (l[i] == 0.f) ? 0.f : 1.f / l[i];
+    float* orow = og + static_cast<long long>(row) * D + tx * C::CW;
+#pragma unroll
+    for (int g = 0; g < C::CG; ++g) {
+      if constexpr (C::CW == 4) {
+        *reinterpret_cast<float4*>(orow + g * 16 * C::CW) =
+            make_float4(o[i][4 * g] * inv, o[i][4 * g + 1] * inv,
+                        o[i][4 * g + 2] * inv, o[i][4 * g + 3] * inv);
+      } else {
+        orow[g * 16] = o[i][g] * inv;
+      }
+    }
   }
 }
 
-template <int D>
+template <int D, int BQ>
 int launch_d(const Params& p, int batch, cudaStream_t stream) {
+  using C = Cfg<D, BQ>;
   static SmemOptIn opt_in;
   const cudaError_t err = opt_in(
-      reinterpret_cast<const void*>(flash_attention_kernel<D>), Smem<D>::BYTES);
+      reinterpret_cast<const void*>(flash_attention_f32_kernel<D, BQ>),
+      C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.h, batch);
-  flash_attention_kernel<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(p);
+  const dim3 grid(p.h, batch, (p.sq + BQ - 1) / BQ);
+  flash_attention_f32_kernel<D, BQ><<<grid, THREADS, C::SMEM, stream>>>(p);
   REPRO_LAUNCH_RESULT();
 }
 
-int launch(const void* q, const void* k, const void* v, void* out,
-           const long long* qs, const long long* ks, const long long* vs,
-           int batch, int h, int hkv, int sq, int skv, int d, int causal,
-           int window, float scale, void* stream) {
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = out;
-  for (int i = 0; i < 3; ++i) {
-    p.qs[i] = qs[i];
-    p.ks[i] = ks[i];
-    p.vs[i] = vs[i];
-  }
-  p.h = h;
-  p.group = h / hkv;
-  p.sq = sq;
-  p.skv = skv;
-  p.causal = causal;
-  p.window = window;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return launch_d<16>(p, batch, s);  // the CPU-test config
-    case 64: return launch_d<64>(p, batch, s);
-    case 128: return launch_d<128>(p, batch, s);  // qwen3-1.7b
+template <int D>
+int launch_tile(const Params& p, int batch, int bq, cudaStream_t stream) {
+  switch (bq) {
+    case 128: return launch_d<D, 128>(p, batch, stream);
+    case 64: return launch_d<D, 64>(p, batch, stream);  // small grids
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+template <int D, int BQ>
+int info_d(int* regs, int* local_bytes, int* smem_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, flash_attention_f32_kernel<D, BQ>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  *smem_bytes = Cfg<D, BQ>::SMEM;
+  return 0;
+}
+
+template <int D>
+int info_tile(int bq, int* regs, int* local_bytes, int* smem_bytes) {
+  switch (bq) {
+    case 128: return info_d<D, 128>(regs, local_bytes, smem_bytes);
+    case 64: return info_d<D, 64>(regs, local_bytes, smem_bytes);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA
@@ -761,9 +841,33 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const long long* qs, const long long* ks,
                                    const long long* vs, int batch, int h,
                                    int hkv, int sq, int skv, int d, int causal,
-                                   int window, float scale, void* stream) {
-  return launch(q, k, v, out, qs, ks, vs, batch, h, hkv, sq, skv, d, causal,
-                window, scale, stream);
+                                   int window, float scale, int bq, int vec,
+                                   void* stream) {
+  simt::Params p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.out = static_cast<float*>(out);
+  for (int i = 0; i < 3; ++i) {
+    p.qs[i] = qs[i];
+    p.ks[i] = ks[i];
+    p.vs[i] = vs[i];
+  }
+  p.h = h;
+  p.group = h / hkv;
+  p.sq = sq;
+  p.skv = skv;
+  p.causal = causal;
+  p.window = window;
+  p.vec = vec;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return simt::launch_tile<16>(p, batch, bq, s);  // CPU-test config
+    case 64: return simt::launch_tile<64>(p, batch, bq, s);
+    case 128: return simt::launch_tile<128>(p, batch, bq, s);  // qwen3-1.7b
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
@@ -797,6 +901,17 @@ extern "C" int flash_attention_bf16_info(int d, int* regs, int* local_bytes,
     case 16: return tc::info_d<16>(regs, local_bytes, smem_bytes);
     case 64: return tc::info_d<64>(regs, local_bytes, smem_bytes);
     case 128: return tc::info_d<128>(regs, local_bytes, smem_bytes);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same for the f32 kernel with query tile bq (128 or 64).
+extern "C" int flash_attention_f32_info(int d, int bq, int* regs,
+                                        int* local_bytes, int* smem_bytes) {
+  switch (d) {
+    case 16: return simt::info_tile<16>(bq, regs, local_bytes, smem_bytes);
+    case 64: return simt::info_tile<64>(bq, regs, local_bytes, smem_bytes);
+    case 128: return simt::info_tile<128>(bq, regs, local_bytes, smem_bytes);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,9 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// repro_torch: shared-memory addresses, mbarriers, TMA tile loads, wgmma
-// descriptors and synchronisation, the dynamic shared-memory opt-in and
-// the tensor-map encoder. Included by flash_attention.cu and matmul.cu;
-// each is compiled into its own library, so everything here is inline or
-// file-local.
+// Hopper (sm_90a) building blocks shared by the kernels of repro_torch:
+// shared-memory addresses, cp.async copies and float4 parts (the f32 SIMT
+// kernels), mbarriers, TMA tile loads, wgmma descriptors and
+// synchronisation, the dynamic shared-memory opt-in and the tensor-map
+// encoder. Included by flash_attention.cu and matmul.cu; each is compiled
+// into its own library, so everything here is inline or file-local.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; its encoder is looked up at run time
@@ -16,6 +16,37 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of one 16-byte chunk (global and shared addresses on 16 bytes)
+// or one 4-byte word: `bytes` of them are read, the rest of the chunk is
+// zero-filled (0 reads nothing, and src only has to be a valid address).
+// 16-byte copies bypass L1 (.cg); 4-byte ones cannot (.ca).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N committed cp.async groups of this thread are still
+// in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Component i of v; i is a constant once the caller's loop is unrolled.
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {

@@ -5,17 +5,24 @@ The kernels are in ``csrc/flash_attention.cu``. bf16 runs on the Hopper
 tensor cores: one block per (head, batch, 128-query tile), a producer
 warp loading K and V tiles by TMA into a two-stage ring, two consumer
 warpgroups computing S = QKᵀ and O += PV with ``wgmma`` and the online
-softmax in registers. f32 runs as IEEE f32 on the SIMT pipes, one block
-per 64-query tile. Both take GQA by indexing the K/V head, causal and
-local-window masks on right-aligned positions, and skip the key tiles
-outside the masks. :func:`flash_attention` takes the plain version for
-CPU tensors and launches a kernel for CUDA tensors; there is no other
-path.
+softmax in registers. f32 runs as IEEE f32 on the SIMT FMA pipes: one
+256-thread block per (head, batch, query tile), K and V tiles of 64 keys
+copied by ``cp.async`` under the FMAs, 8 rows x 4 keys of S and 8 rows x
+8 columns of O a thread in registers, the softmax in registers. Its
+query tile is 128 rows, or 64 where a grid of 128-row tiles would leave
+SMs without a block (:func:`f32_query_tile`). Both take GQA by indexing
+the K/V head, causal and local-window masks on right-aligned positions,
+and skip the key tiles outside the masks. :func:`flash_attention` takes
+the plain version for CPU tensors and launches a kernel for CUDA
+tensors; there is no other path.
 
 TMA reads a tensor where it lies only if its base address and outer
 strides are multiples of 16 bytes; :func:`kernel_operand` decides, per
 tensor, whether it is passed through or copied to a contiguous tensor
-first, so every bf16 shape still reaches the kernel.
+first, so every bf16 shape still reaches the kernel. The f32 kernel reads
+any tensor whose last axis is contiguous, 16 bytes a thread where the
+base and strides allow it and 4 bytes a thread elsewhere
+(:func:`f32_vector_loads`).
 """
 from __future__ import annotations
 
@@ -25,10 +32,11 @@ from typing import Dict, Optional
 import torch
 
 from . import ref
-from .build import CudaKernel
+from .build import CudaKernel, device_sm_count
 
-__all__ = ["KERNEL", "HEAD_DIMS", "flash_attention", "kernel_info",
-           "kernel_operand", "tma_ready"]
+__all__ = ["KERNEL", "HEAD_DIMS", "F32_QUERY_TILES", "flash_attention",
+           "kernel_info", "kernel_operand", "tma_ready", "f32_vector_loads",
+           "f32_query_tile"]
 
 _STRIDES = ctypes.c_longlong * 3
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -37,13 +45,19 @@ _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
          ctypes.c_void_p)
+#: the f32 launch also takes the query tile and the copy widths (bits)
+_F32_ARGS = _ARGS[:-1] + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _INFO_ARGS = (ctypes.c_int, ctypes.POINTER(ctypes.c_int),
               ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
-_FN = {torch.float32: "flash_attention_f32",
-       torch.bfloat16: "flash_attention_bf16"}
+_F32_INFO_ARGS = (ctypes.c_int,) + _INFO_ARGS
+_DTYPES = (torch.float32, torch.bfloat16)
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 64, 128)
-#: TMA's alignment of a tensor's base address and strides, in bytes
+#: f32 query tiles (rows a block): the large tile, and the one for grids
+#: that would leave SMs without a block
+F32_QUERY_TILES = (128, 64)
+#: TMA's alignment of a tensor's base address and strides, in bytes, and
+#: that of the f32 kernel's 16-byte copies
 TMA_ALIGN = 16
 #: how the bf16 kernel feeds P to the P·V product: two bf16 halves of the
 #: f32 probabilities, hi = bf16(P) and lo = bf16(P - hi), into one f32
@@ -51,7 +65,9 @@ TMA_ALIGN = 16
 PV_VARIANT = "P split into bf16 hi + lo, two wgmma per k16 step"
 
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu",
-                    {**{name: _ARGS for name in _FN.values()},
+                    {"flash_attention_f32": _F32_ARGS,
+                     "flash_attention_bf16": _ARGS,
+                     "flash_attention_f32_info": _F32_INFO_ARGS,
                      "flash_attention_bf16_info": _INFO_ARGS},
                     replaces="src/repro/kernels/flash_attention.py:88")
 
@@ -74,20 +90,44 @@ def kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
+def f32_vector_loads(t: torch.Tensor) -> bool:
+    """Whether the f32 kernel copies ``t`` (``[B,H,S,D]``, last axis
+    contiguous) 16 bytes a thread: its base on 16 bytes and the stride of
+    every other axis longer than 1 a multiple of 4 floats, so that no
+    row's 16-byte chunk straddles an alignment. Else 4 bytes a thread."""
+    return t.data_ptr() % TMA_ALIGN == 0 and all(
+        n == 1 or st % 4 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def f32_query_tile(batch: int, heads: int, sq: int, sm_count: int) -> int:
+    """The f32 kernel's query tile for a grid of ``batch x heads`` blocks
+    over ``sq`` queries: 128 rows, unless 128-row tiles would give fewer
+    blocks than the card has SMs (qwen3-1.7b's 1 x 16 heads x 512: 64
+    blocks on 132 SMs); then 64."""
+    big, small = F32_QUERY_TILES
+    return big if batch * heads * -(-sq // big) >= sm_count else small
+
+
 def _strides(t: torch.Tensor) -> "ctypes.Array":
     return _STRIDES(*t.stride()[:3])
 
 
-def kernel_info(d: int) -> Dict[str, object]:
-    """The bf16 kernel for head dim ``d`` as compiled: registers a thread,
-    local (spill) bytes a thread, dynamic shared memory a block, and how P
-    enters the P·V product. Builds the library; launches nothing."""
+def kernel_info(d: int, dtype: torch.dtype = torch.bfloat16,
+                query_tile: int = F32_QUERY_TILES[0]) -> Dict[str, object]:
+    """The kernel of ``dtype`` for head dim ``d`` (f32: and ``query_tile``)
+    as compiled: registers a thread, local (spill) bytes a thread and
+    dynamic shared memory a block; bf16 also says how P enters the P·V
+    product. Builds the library; launches nothing."""
     regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    KERNEL.query("flash_attention_bf16_info", d, ctypes.byref(regs),
-                 ctypes.byref(local), ctypes.byref(smem))
-    return {"head_dim": d, "registers": regs.value,
-            "spill_bytes": local.value, "smem_bytes": smem.value,
-            "pv": PV_VARIANT}
+    out = ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem)
+    if dtype == torch.float32:
+        KERNEL.query("flash_attention_f32_info", d, query_tile, *out)
+        extra = {"query_tile": query_tile}
+    else:
+        KERNEL.query("flash_attention_bf16_info", d, *out)
+        extra = {"pv": PV_VARIANT}
+    return {"head_dim": d, "dtype": str(dtype), "registers": regs.value,
+            "spill_bytes": local.value, "smem_bytes": smem.value, **extra}
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
@@ -101,11 +141,19 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, skv = k.shape[1], k.shape[2]
     q, k, v = (kernel_operand(t) for t in (q, k, v))
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    if out.numel():
-        KERNEL.launch(_FN[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), _strides(q), _strides(k), _strides(v),
-                      b, h, hkv, sq, skv, d, int(causal), window, scale,
-                      torch.cuda.current_stream(q.device).cuda_stream)
+    if not out.numel():
+        return out
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _strides(q), _strides(k), _strides(v), b, h, hkv, sq, skv, d,
+            int(causal), window, scale)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.float32:
+        tile = f32_query_tile(b, h, sq, device_sm_count(q.device.index))
+        vec = sum(int(f32_vector_loads(t)) << i
+                  for i, t in enumerate((q, k, v)))
+        KERNEL.launch("flash_attention_f32", *args, tile, vec, stream)
+    else:
+        KERNEL.launch("flash_attention_bf16", *args, stream)
     return out
 
 
@@ -125,7 +173,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k.shape[1] == 0 or q.shape[1] % k.shape[1]:
         raise ValueError(f"flash_attention shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.dtype not in _FN or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes f32 or bf16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window < 1:

@@ -27,13 +27,12 @@ kernel for CUDA tensors; no shape or layout takes another path.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, List, Tuple
 
 import torch
 
 from . import ref
-from .build import CudaKernel
+from .build import CudaKernel, device_sm_count
 
 __all__ = ["KERNEL", "matmul", "kernel_info", "f32_operand",
            "f32_vector_loads", "f32_tile", "bf16_tile", "tma_ready",
@@ -131,11 +130,6 @@ def tma_operand(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return t, t.stride(0)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def kernel_info() -> List[Dict[str, object]]:
     """Each compiled B1 kernel (:data:`INSTANTIATIONS`): registers a
     thread, local (spill) bytes a thread and dynamic shared memory a
@@ -172,13 +166,13 @@ def _matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         KERNEL.launch("matmul_f32", a.data_ptr(), b.data_ptr(), c.data_ptr(),
                       m, n, k, lda, ldb, int(f32_vector_loads(a, lda)),
                       int(f32_vector_loads(b, ldb)),
-                      f32_tile(m, n, _sm_count(a.device.index)), stream)
+                      f32_tile(m, n, device_sm_count(a.device.index)), stream)
     else:
         a, lda = tma_operand(a)
         b, ldb = tma_operand(b)
         KERNEL.launch("matmul_bf16", a.data_ptr(), b.data_ptr(), c.data_ptr(),
                       m, n, k, lda, ldb,
-                      bf16_tile(m, n, _sm_count(a.device.index)), stream)
+                      bf16_tile(m, n, device_sm_count(a.device.index)), stream)
     return c
 
 

@@ -23,9 +23,10 @@ from repro_torch.examples.mandelbrot_offload import run as run_offload
 from repro_torch.indexing import (build_wah_index, build_wah_index_numpy,
                                   wah_index_pipeline_actors)
 from repro_torch.kernels import KERNELS, ops, ref
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
-                                                 kernel_info, kernel_operand,
-                                                 tma_ready)
+from repro_torch.kernels.flash_attention import (F32_QUERY_TILES, HEAD_DIMS,
+                                                 f32_vector_loads,
+                                                 flash_attention, kernel_info,
+                                                 kernel_operand, tma_ready)
 from repro_torch.kernels.matmul import INSTANTIATIONS
 from repro_torch.kernels.matmul import KERNEL as MATMUL_KERNEL
 from repro_torch.kernels.matmul import kernel_info as matmul_kernel_info
@@ -398,6 +399,10 @@ def test_mandelbrot_kernel_is_bit_exact(cuda_device, height, width,
     (1, 2, 2, 520, 520, 128, True, 200),       # window across tile edges
     (2, 4, 2, 384, 384, 128, True, None),      # GQA 2, three query tiles
     (1, 2, 1, 256, 256, 16, True, None),       # D = 16, two query tiles
+    (2, 16, 8, 520, 600, 128, False, None),    # not causal, f32 128-row tiles
+    (1, 16, 8, 512, 512, 128, True, None),     # the f32 prefill: 64-row tiles
+    (4, 16, 8, 300, 300, 64, True, 50),        # f32 128-row tiles, D = 64
+    (4, 16, 4, 300, 300, 16, True, None),      # f32 128-row tiles, D = 16
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)])
@@ -469,6 +474,54 @@ def test_flash_attention_copies_what_tma_cannot_read(cuda_device, layout):
         q, k, k, causal=True).float(), rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("layout", ["odd_row_stride", "odd_base"])
+def test_flash_attention_f32_reads_operands_off_16_bytes(cuda_device, layout):
+    """An f32 tensor whose rows or base are off 16 bytes is read where it
+    lies, 4 bytes a thread: one launch, no copy."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    if layout == "odd_row_stride":
+        q, k, v = (torch.randn(1, h, 300, 129, generator=g,
+                               device=cuda_device)[..., :128]
+                   for h in (16, 8, 8))
+    else:
+        q, k, v = (torch.randn(h * 300 * 128 + 1, generator=g,
+                               device=cuda_device)[1:].view(1, h, 300, 128)
+                   for h in (16, 8, 8))
+    assert all(kernel_operand(t) is t and not f32_vector_loads(t)
+               for t in (q, k, v))
+    before = _launches()["flash_attention"]
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _launches()["flash_attention"] == before + 1
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal=True),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_repeats_exactly(cuda_device, dtype):
+    """No atomics and no order that changes between runs: two launches on
+    the same inputs give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q = torch.randn(2, 16, 600, 128, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(2, 8, 600, 128, generator=g,
+                        device=cuda_device).to(dtype) for _ in range(2))
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    first = flash_attention(q, k, v, causal=True)
+    second = flash_attention(q, k, v, causal=True)
+    assert torch.equal(first.view(bits), second.view(bits))
+
+
+def test_flash_attention_f32_kernel_info(cuda_device):
+    """The f32 kernel compiles without spills at every head dim and query
+    tile, and fits one block an SM."""
+    for d in HEAD_DIMS:
+        for tile in F32_QUERY_TILES:
+            info = kernel_info(d, torch.float32, tile)
+            assert info["query_tile"] == tile and info["spill_bytes"] == 0
+            assert 0 < info["registers"] <= 255
+            assert info["smem_bytes"] <= 232448
+
+
 def test_flash_attention_bf16_kernel_info(cuda_device):
     """The bf16 kernel compiles without spills and fits one block an SM."""
     for d in HEAD_DIMS:
@@ -498,8 +551,11 @@ def test_map_over_stays_on_the_card(cuda_device):
     x = np.random.default_rng(6).random((1024, 256), np.float32)
     with ActorSystem(max_workers=4) as system:
         g = Graph(system, name="mapped_mm")
+        # no speculative re-issue: this test counts launches, and a chunk
+        # that lags on a noisy host would be issued twice
         g.output(g.map_over(mm, g.source("x", torch.float32), chunks=4,
-                            replicas=2, min_chunk_bytes=0))
+                            replicas=2, min_chunk_bytes=0,
+                            straggler_factor=float("inf")))
         built = g.build()
         x_ref = DeviceRef.put(x)
         before = registry.stats()

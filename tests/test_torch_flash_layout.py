@@ -1,19 +1,29 @@
-"""Which q/k/v tensors B6's bf16 kernel reads where they lie.
+"""Which q/k/v tensors B6's kernels read where they lie, and how.
 
 The bf16 kernel loads its tiles by TMA, which needs the base address and
 the outer strides on 16 bytes and the last axis contiguous. The wrapper's
 :func:`kernel_operand` passes such tensors through and copies the others
-to a contiguous tensor, so every shape still reaches the kernel. These
-tests run that decision on ``meta`` and CPU tensors; the kernel itself is
-held in ``tests/test_torch_cuda.py`` on the card.
+to a contiguous tensor, so every shape still reaches the kernel. The f32
+kernel reads any tensor whose last axis is contiguous: 16 bytes a thread
+where the base and strides allow it, else 4 bytes a thread
+(:func:`f32_vector_loads`); its query tile is chosen by
+:func:`f32_query_tile`. These tests run those decisions on ``meta`` and
+CPU tensors; the kernels themselves are held in
+``tests/test_torch_cuda.py`` on the card.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import KERNELS, ref
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
+from repro_torch.kernels.flash_attention import (F32_QUERY_TILES, HEAD_DIMS,
+                                                 f32_query_tile,
+                                                 f32_vector_loads,
+                                                 flash_attention,
                                                  kernel_operand, tma_ready)
+
+#: the H100's streaming multiprocessors
+H100_SMS = 132
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -65,6 +75,53 @@ def test_f32_operands_only_need_a_contiguous_last_axis():
     assert kernel_operand(odd) is odd
     strided = _meta(2, 16, 128, 300, dtype=torch.float32).transpose(2, 3)
     assert kernel_operand(strided).is_contiguous()
+
+
+def _f32(*shape):
+    return _meta(*shape, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("make,vector", [
+    (lambda: _f32(2, 16, 300, 128), True),                   # contiguous
+    (lambda: _bshd(2, 300, 16, 128, dtype=torch.float32), True),  # model's q
+    (lambda: _bshd(2, 300, 8, 16, dtype=torch.float32), True),    # D = 16
+    (lambda: _f32(2, 16, 300, 132)[..., :128], True),        # rows of 528 B
+    (lambda: _f32(2, 16, 300, 128)[:, :, 64:], True),        # whole rows in
+    (lambda: _f32(2, 16, 300, 128)[..., 4:68], True),        # base 16 B in
+    (lambda: _f32(2, 1, 300, 128).expand(2, 8, 300, 128), True),  # stride 0
+    (lambda: torch.empty_strided((1, 1, 1, 64), (7, 7, 7, 1),
+                                 dtype=torch.float32, device="meta"), True),
+    (lambda: _f32(2, 16, 300, 129)[..., :128], False),       # rows of 516 B
+    (lambda: _f32(2, 16, 300, 130)[..., :128], False),       # rows of 520 B
+    (lambda: _f32(2 * 16 * 300 * 128 + 1)[1:].view(2, 16, 300, 128), False),
+    (lambda: _f32(2, 16, 300, 128)[..., 1:65], False),       # base 4 B off
+    (lambda: torch.empty_strided((2, 4, 300, 64), (4 * 19201, 19201, 64, 1),
+                                 dtype=torch.float32, device="meta"), False),
+], ids=["contiguous", "bshd", "bshd_d16", "padded_rows", "row_offset",
+        "column_slice", "expanded_heads", "single_row", "odd_row_stride",
+        "row_stride_8_bytes_off", "odd_base", "misaligned_base",
+        "head_stride_off"])
+def test_f32_copy_width_follows_base_and_strides(make, vector):
+    """16-byte copies where the base and every outer stride of an axis
+    longer than 1 are on 16 bytes, 4-byte copies elsewhere; never a
+    copy of the tensor."""
+    t = make()
+    assert f32_vector_loads(t) is vector
+    assert kernel_operand(t) is t
+
+
+@pytest.mark.parametrize("batch,heads,sq,tile", [
+    (1, 16, 4096, 128),     # the qwen3-1.7b layer: 512 blocks
+    (2, 16, 2048, 128),     # the bf16 prefill's launch: 512 blocks
+    (1, 16, 512, 64),       # the f32 prefill's launch: 64 blocks at 128
+    (1, 1, 4096, 64),       # one head: 32 blocks at 128
+    (1, 132, 128, 128),     # one 128-row tile on every SM
+    (1, 131, 128, 64),      # one SM short
+    (4, 1, 4225, 128),      # ragged: 4 x 34 tiles
+])
+def test_f32_query_tile_fills_the_card(batch, heads, sq, tile):
+    assert tile in F32_QUERY_TILES
+    assert f32_query_tile(batch, heads, sq, H100_SMS) == tile
 
 
 def test_copied_operand_keeps_the_values():

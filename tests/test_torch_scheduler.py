@@ -24,6 +24,7 @@ from repro_torch.core import (ActorPool, ActorSystem, ChunkScheduler,
                               In, NDRange, Out, dim_vec, kernel,
                               live_ref_count, reset_transfer_stats,
                               split_offload, transfer_count)
+from repro_torch.core import scheduler as scheduler_module
 from repro_torch.core.scheduler import WorkItem
 
 CPU = torch.device("cpu")
@@ -308,6 +309,37 @@ def test_map_over_matches_the_jax_graph():
         got = g.build().ask(xs)
     assert isinstance(got, np.ndarray) and got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
+
+
+def test_map_over_without_speculation_dispatches_each_chunk_once(
+        system, monkeypatch):
+    """``straggler_factor=inf``, passed through ``map_over`` to its
+    ChunkScheduler, turns speculative re-issue off: a lagging chunk is
+    waited for, and exactly ``chunks`` chunks are dispatched."""
+    made = []
+
+    class Recording(ChunkScheduler):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(scheduler_module, "ChunkScheduler", Recording)
+
+    @kernel(In(torch.float32), Out(torch.float32), name="lagging")
+    def lagging(x):
+        if x.device.type != "meta" and float(x[0]) == 0.0:
+            time.sleep(0.3)            # the first chunk lags the others
+        return x + 1.0
+
+    g = Graph(system, name="mapnospec")
+    g.output(g.map_over(lagging, g.source("x", torch.float32), chunks=4,
+                        replicas=3, min_chunk_bytes=0,
+                        straggler_factor=float("inf")))
+    xs = np.arange(64, dtype=np.float32)
+    np.testing.assert_allclose(g.build().ask(xs), xs + 1)
+    assert len(made) == 1 and made[0].straggler_factor == float("inf")
+    assert made[0].stats == {"dispatched": 4, "speculative": 0, "failed": 0,
+                             "expired": 0}
 
 
 def test_map_over_small_input_takes_one_chunk(system):
