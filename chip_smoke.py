@@ -44,7 +44,24 @@ port's main path through the entry points a user calls:
   ``--paged --full`` defaults) against the same step function over
   contiguous caches. No kernel of the port is on the decode path: the
   JAX package's decode attention is plain XLA, so it is plain PyTorch
-  here.
+  here;
+* the network layer and the serve mesh (``repro_torch.net``,
+  ``repro_torch.serve.mesh``): two nodes of this process on the card send
+  a 2**22 f32 ``DeviceRef`` to a remote stage and back, raw and
+  int8-compressed (one spill and one unspill per hop per side, the result
+  bit for bit the same computation on the CPU through the CPU codec), and
+  a bf16 leaf and ref; a ``MeshRouter`` over two qwen3-1.7b bf16
+  replicas in this process serves 32 requests x 16 tokens, half under 4
+  session keys (every request once, 16 routed by key, both replicas
+  served, each session on one replica, no transfer or spill, each
+  request's tokens those a prefill of its own prompt allows); then a
+  driver and two worker processes (``launch.node.run_worker`` by
+  ``spawn``, each on its own CUDA context) serve 16 requests x 8 tokens
+  from an f32 replica of batch 1 each, offered the rate one such engine
+  serves alone, one worker SIGKILLed while it holds a request in flight:
+  none lost, none twice, every request's tokens those of one f32 engine
+  of batch 1 in this process, the rate after the failure window at least
+  0.8 of the rate before it.
 
 Every B1, B3 and B6 kernel's registers and spill bytes are printed (none
 may spill), and ``cuobjdump -sass`` of the B1 and B6 libraries shows which
@@ -185,6 +202,34 @@ SERVE_F32_REQUESTS, SERVE_F32_STEPS = 2 * SERVE_BATCH, 24
 #: each step's logits held to the bf16 prefill check's limits against
 #: the prefill forward's at that position
 DECODE_S = 256
+#: the wire phase: a DeviceRef of 2^22 f32 values (16 MiB) to a remote
+#: stage and back between two nodes of this process
+WIRE_N = 1 << 22
+#: the mesh in one process: 2 bf16 replicas of batch 8 serve 32 requests x
+#: 16 greedy tokens, half of them under 4 session keys
+MESH_REPLICAS, MESH_BATCH = 2, 8
+MESH_REQUESTS, MESH_STEPS, MESH_SESSIONS = 32, 16, 4
+#: each of those requests' tokens is held to its own prompt: its prompt
+#: and tokens go through one bf16 prefill forward, and each emitted token's
+#: logit must lie within MESH_MARGIN x max |logit| of its position's
+#: largest. The decode check holds a decode step's logits within
+#: PREFILL_BF16_TOL x max |logit| of the prefill's, so a decode step's
+#: argmax lies within twice that of the prefill's largest logit; a token
+#: of another request's sequence lies several logit spreads below it
+MESH_MARGIN = 2 * PREFILL_BF16_TOL
+#: the mesh across processes: 2 worker processes of one f32 replica each
+#: at batch 1 serve 16 requests x 8 tokens; a worker is killed once a
+#: quarter of them have completed and it holds one. The requests are
+#: offered at MESH_KILL_LOAD times the rate one f32 engine of batch 1
+#: serves them alone in this process (timed on the reference pass), so
+#: the survivor runs at full load after the kill. Above 1 a lone
+#: survivor could not keep up: its rate after the kill would fall to
+#: 1 / MESH_KILL_LOAD of the rate before it, under the 0.8 that run_demo
+#: asserts, as the JAX demo does. The failure window after the kill spans
+#: MESH_KILL_RECOVER request intervals (the replay and the backlog it
+#: leaves), so the window after it holds about half the requests
+MESH_WORKERS, MESH_KILL_STEPS, MESH_KILL_LOAD = 2, 8, 1.0
+MESH_KILL_REQUESTS, MESH_KILL_RECOVER = 16, 3
 
 
 def log(msg: str) -> None:
@@ -597,6 +642,267 @@ def serve_paged_phase(run_phase, cfg, dev) -> dict:
                occupancy=stats["occupancy"], peak_pages=ps["peak_pages"],
                equal_to_contiguous=same)
     return row
+
+
+# -- the network layer and the serve mesh -----------------------------------------
+def wire_phase(run_phase, dev) -> dict:
+    """Two nodes of this process on ``dev``: a DeviceRef of WIRE_N f32
+    values to a remote ``stage_square`` and back, raw and int8-compressed
+    (spills and unspills counted on the process's one registry: one of
+    each per hop per side), the int8 codec on the card against the same
+    codec on the CPU, and a bf16 leaf and ref through the wire."""
+    from repro_torch.core import (ActorSystem, DeviceRef, memory_stats,
+                                  reset_transfer_stats)
+    from repro_torch.dist.collectives import dequantize_ref, quantize_ref
+    from repro_torch.net import NodeRuntime, wire
+    from repro_torch.net.demo import stage_square
+
+    def codec_cpu(x):
+        q, s = quantize_ref(x)
+        return dequantize_ref(q, s).array
+
+    out = {}
+    sa, sb = ActorSystem("wire-a", device=dev), ActorSystem("wire-b",
+                                                            device=dev)
+    na = NodeRuntime(sa, name="a", listen=("127.0.0.1", 0))
+    nb = NodeRuntime(sb, name="b")
+    try:
+        nb.connect(na.address)
+        check(na.wait_for_peer("b", 60), "wire: node b never connected")
+        check(na.unspill_device == dev == nb.unspill_device,
+              f"wire: nodes land refs on {na.unspill_device}, not {dev}")
+        nb.publish("sq", sb.spawn(stage_square))
+        nb.publish("echo", sb.spawn(lambda v: v))
+        remote = na.remote_actor("b", "sq", timeout=60)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        x = torch.randn(WIRE_N, generator=gen, device=dev)
+        for compress in (False, True):
+            na.compress = nb.compress = compress
+            tag = "int8" if compress else "raw"
+            remote.ask(DeviceRef(x.clone()), timeout=60)     # warm up
+            ref = DeviceRef(x.clone())
+            reset_transfer_stats()
+            got = run_phase(f"wire hop {tag} f32 2^22", [],
+                            lambda: remote.ask(ref, timeout=60))
+            stats = memory_stats()
+            check(stats["spills"] == 2 and stats["unspills"] == 2,
+                  f"wire {tag}: {stats['spills']} spills, "
+                  f"{stats['unspills']} unspills in one round trip, not 2")
+            t0 = time.perf_counter()
+            for _ in range(5):
+                remote.ask(ref, timeout=60).block_until_ready()
+            hop_ms = (time.perf_counter() - t0) / 5 * 1e3
+            check(got.device == dev and not ref.is_spilled,
+                  f"wire {tag}: the reply landed on {got.device}")
+            if compress:
+                # the codec on the card, bit for bit the codec on the CPU:
+                # the request hop's codec, the stage, the reply hop's codec
+                want = codec_cpu(codec_cpu(x.cpu()).square())
+                q_gpu, s_gpu = quantize_ref(x)
+                q_cpu, s_cpu = quantize_ref(x.cpu())
+                check(s_gpu == s_cpu and torch.equal(q_gpu.array.cpu(),
+                                                     q_cpu.array),
+                      "wire: the int8 codec on the card differs from the CPU")
+            else:
+                want = (x * x).cpu()
+            same = torch.equal(got.array.cpu(), want)
+            check(same, f"wire {tag}: the round trip differs from "
+                  "the same computation on the CPU")
+            nbytes = wire.encoded_size((DeviceRef(x),), compress=compress)
+            out[tag] = dict(round_trip_ms=hop_ms, request_wire_bytes=nbytes,
+                            spills=stats["spills"],
+                            unspills=stats["unspills"], bit_exact=same)
+            log(f"wire {tag}: a round trip of {WIRE_N} f32 values to a "
+                f"remote stage_square {hop_ms:.3f} ms (mean of 5), "
+                f"{nbytes} wire bytes a request, spills/unspills "
+                f"{stats['spills']}/{stats['unspills']}, bit-exact against "
+                "the CPU")
+        na.compress = nb.compress = False
+        echo = na.remote_actor("b", "echo", timeout=60)
+        xb = x[:4096].bfloat16()
+        leaf, bref = echo.ask((xb, DeviceRef(xb.clone())), timeout=60)
+        check(leaf.dtype == torch.bfloat16 and torch.equal(leaf, xb.cpu()),
+              "wire: a bf16 tensor leaf did not come back as the same bf16")
+        check(bref.dtype == torch.bfloat16 and bref.device == dev and
+              torch.equal(bref.array, xb),
+              "wire: a bf16 DeviceRef did not come back as bf16 on the card")
+        log("wire: a bf16 leaf comes back a CPU bf16 tensor, a bf16 ref a "
+            "bf16 ref on the card, bit for bit")
+    finally:
+        na.shutdown()
+        nb.shutdown()
+        sa.shutdown()
+        sb.shutdown()
+    return out
+
+
+def percentile(sorted_ms, q):
+    return sorted_ms[min(len(sorted_ms) - 1,
+                         int(round(q / 100 * (len(sorted_ms) - 1))))]
+
+
+def mesh_local_phase(run_phase, cfg, dev) -> dict:
+    """A MeshRouter over MESH_REPLICAS EngineReplicas of qwen3-1.7b in bf16
+    (all 28 layers, random weights from seed 0, as the serve phases) in
+    this process: MESH_REQUESTS x MESH_STEPS greedy tokens, half of them
+    under MESH_SESSIONS session keys. Each request's tokens are held to
+    its own prompt by one prefill forward of the same weights (see
+    MESH_MARGIN)."""
+    from repro_torch.core import ActorSystem
+    from repro_torch.core.memref import registry
+    from repro_torch.launch.serve_mesh import model_engine
+    from repro_torch.models import Model
+    from repro_torch.serve import MeshRouter, ReplicaSpec
+
+    vocab = cfg.vocab_size
+
+    spec = ReplicaSpec(model_engine, arch="qwen3-1.7b", dtype="bfloat16",
+                       seed=0, max_batch=MESH_BATCH, steps=MESH_STEPS)
+    rng = np.random.default_rng(11)
+    prompts = [int(t) for t in rng.integers(0, vocab, MESH_REQUESTS)]
+    sessions = [f"session-{i // 2 % MESH_SESSIONS}" if i % 2 else None
+                for i in range(MESH_REQUESTS)]
+    name = (f"mesh qwen3-1.7b bf16 {MESH_REPLICAS} replicas "
+            f"{MESH_REQUESTS}x{MESH_STEPS}")
+    with ActorSystem("mesh", device=dev) as system:
+        router = MeshRouter(system, None, spec=spec,
+                            min_replicas=MESH_REPLICAS,
+                            max_replicas=MESH_REPLICAS)
+        reps = [router.spawn_replica() for _ in range(MESH_REPLICAS)]
+        with router:
+            for rep in reps:        # build each engine, pay its first step
+                rep.ref.ask("serve", 0, 2, 0, None, timeout=600)
+
+            def engine_steps():
+                return {rep.key: rep.ref.ask("stats", timeout=60)["steps"]
+                        for rep in reps}
+
+            before, steps0 = registry.stats(), engine_steps()
+
+            def body():
+                t0 = time.perf_counter()
+                futs = [router.submit(p, max_new_tokens=MESH_STEPS,
+                                      session=sess)
+                        for p, sess in zip(prompts, sessions)]
+                results = [f.result(600) for f in futs]
+                return futs, results, time.perf_counter() - t0
+
+            futs, results, wall = run_phase(name, [], body)
+            after, s = registry.stats(), router.stats()
+            steps = {k: v - steps0[k] for k, v in engine_steps().items()}
+        router.shutdown(drain=True)
+    check(all(f.done() and not f.cancelled() for f in futs),
+          f"{name}: a future is unresolved")
+    for i, r in enumerate(results):
+        check(len(r.tokens) == MESH_STEPS and
+              all(0 <= int(t) < vocab for t in r.tokens),
+              f"{name}: request {i} gave {len(r.tokens)} tokens or one out "
+              "of the vocabulary")
+    check(s["completed"] == MESH_REQUESTS and s["failed"] == 0 and
+          s["shed"] == 0 and s["submitted"] == MESH_REQUESTS,
+          f"{name}: router counters {s}")
+    keyed = sum(sess is not None for sess in sessions)
+    check(s["prefix_routed"] == keyed,
+          f"{name}: prefix_routed {s['prefix_routed']}, not {keyed}")
+    served = collections.Counter(f.replica for f in futs)
+    check(len(served) == MESH_REPLICAS, f"{name}: replicas served {served}")
+    by_session = collections.defaultdict(set)
+    for f, sess in zip(futs, sessions):
+        if sess is not None:
+            by_session[sess].add(f.replica)
+    check(all(len(v) == 1 for v in by_session.values()),
+          f"{name}: a session spread over replicas: {dict(by_session)}")
+    for key in ("transfers", "spills"):
+        check(after[key] == before[key],
+              f"{name}: the registry's {key} grew during the run")
+    # the replicas' weights, rebuilt from the seed: each request's prompt
+    # and its tokens but the last, teacher-forced in one forward
+    model = Model(cfg, attn_impl="kernel", device=dev)
+    params = model.init(0)
+    emitted = torch.tensor([[int(t) for t in r.tokens] for r in results],
+                           device=dev)
+    seq = torch.cat([torch.tensor(prompts, device=dev)[:, None],
+                     emitted[:, :-1]], 1)
+    logits = model.forward(params, {"tokens": seq})[0].float()
+    margin = ((logits.amax(-1) - logits.gather(-1, emitted[..., None])[..., 0])
+              / logits.abs().amax(-1))
+    worst, top1 = float(margin.max()), float((margin == 0).float().mean())
+    del model, params, logits
+    log(f"{name}: each request's tokens against a prefill of its own "
+        f"prompt: worst margin below the largest logit {worst} of max "
+        f"|logit| (limit {MESH_MARGIN}), top-1 agreement {top1}")
+    check(worst <= MESH_MARGIN, f"{name}: a request's token lies {worst} of "
+          f"max |logit| below its prefill's largest logit (limit "
+          f"{MESH_MARGIN}): tokens of another prompt")
+    lat = sorted(r.latency_s * 1e3 for r in results)
+    toks = MESH_REQUESTS * MESH_STEPS
+    row = dict(requests=MESH_REQUESTS, tokens=toks, wall_s=wall,
+               tok_per_s=toks / wall, p50_ms=percentile(lat, 50),
+               p99_ms=percentile(lat, 99), served=dict(served),
+               engine_steps=steps,
+               step_wall_ms=wall * 1e3 / max(steps.values()),
+               prefix_routed=s["prefix_routed"], worst_margin=worst,
+               top1=top1,
+               sessions={k: sorted(v) for k, v in by_session.items()})
+    log(f"{name}: {toks} tokens in {wall:.3f} s: {row['tok_per_s']:.1f} "
+        f"tok/s; latency p50 {row['p50_ms']:.1f} ms, p99 "
+        f"{row['p99_ms']:.1f} ms; requests a replica {dict(served)}, "
+        f"engine steps a replica {steps} ({row['step_wall_ms']:.1f} ms of "
+        f"wall a step), prefix_routed {s['prefix_routed']}, each session "
+        "on one replica")
+    return row
+
+
+def mesh_procs_phase(run_phase, dev) -> dict:
+    """A driver and MESH_WORKERS worker processes (``run_worker``, started
+    by ``spawn``, each binding its own cuda:0), one f32 qwen3-1.7b replica
+    of batch 1 on each, offered MESH_KILL_LOAD times one engine's rate;
+    one worker SIGKILLed while it holds a request in flight. Every
+    request's tokens against one f32 engine of batch 1 in this process,
+    which also times that rate; ``run_demo`` asserts the rate after the
+    failure window reaches 0.8 of the rate before it."""
+    from repro_torch.core import ActorSystem
+    from repro_torch.launch.serve_mesh import model_engine, run_demo
+    from repro_torch.serve import ReplicaSpec
+
+    kw = dict(arch="qwen3-1.7b", dtype="float32", seed=0, max_batch=1,
+              steps=MESH_KILL_STEPS)
+    with ActorSystem("mesh-reference", device=dev) as system:
+        with model_engine(system, **kw) as engine:
+            engine.submit(0, max_new_tokens=MESH_KILL_STEPS).result(600)
+            t0 = time.perf_counter()
+            futs = [engine.submit(i, max_new_tokens=MESH_KILL_STEPS)
+                    for i in range(MESH_KILL_REQUESTS)]
+            reference = [[int(t) for t in f.result(600).tokens]
+                         for f in futs]
+            alone_rps = MESH_KILL_REQUESTS / (time.perf_counter() - t0)
+        del engine
+    torch.cuda.empty_cache()
+    rps = MESH_KILL_LOAD * alone_rps
+    log(f"mesh reference: one f32 engine of batch 1 served "
+        f"{MESH_KILL_REQUESTS}x{MESH_KILL_STEPS} at {alone_rps:.3f} "
+        f"requests/s; offering {rps:.3f} rps to the mesh")
+    name = (f"mesh qwen3-1.7b f32 {MESH_WORKERS} worker processes "
+            f"{MESH_KILL_REQUESTS}x{MESH_KILL_STEPS}, SIGKILL")
+    summary = run_phase(name, [], lambda: run_demo(
+        MESH_WORKERS, rps=rps, duration_s=MESH_KILL_REQUESTS / rps,
+        recover_window_s=MESH_KILL_RECOVER / rps,
+        max_new_tokens=MESH_KILL_STEPS, spec=ReplicaSpec(model_engine, **kw),
+        expected=lambda i, n: reference[i], timeout=600.0, device=str(dev)))
+    summary["alone_rps"] = alone_rps
+    check(summary["lost"] == 0 and summary["replicas_lost"] == 1 and
+          summary["completed"] == summary["submitted"] == MESH_KILL_REQUESTS,
+          f"{name}: {summary}")
+    check(set(summary["worker_devices"].values()) == {str(dev)},
+          f"{name}: workers bound {summary['worker_devices']}")
+    for w in summary["windows"]:
+        log(f"{name}: window {w['window']} [{w['start_s']:.3f}, "
+            f"{w['end_s']:.3f}) s: {w['completed']} completed, "
+            f"{w['achieved_rps']:.3f} rps, p99 {w['p99_ms']:.1f} ms")
+    log(f"{name}: killed at {summary['kill_at_s']:.3f} s, replayed "
+        f"{summary['replayed']}, lost {summary['lost']}; every request "
+        "gave the single f32 engine's tokens")
+    return summary
 
 
 def main() -> int:
@@ -1285,6 +1591,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve["paged"] = serve_paged_phase(run_phase, cfg, dev)
     print(json.dumps({"serve": serve}), flush=True)
+
+    # -- the network layer and the serve mesh -----------------------------------
+    mesh = {"card": card, "wire": wire_phase(run_phase, dev)}
+    mesh["local"] = mesh_local_phase(run_phase, cfg, dev)
+    torch.cuda.empty_cache()
+    mesh["processes"] = mesh_procs_phase(run_phase, dev)
+    print(json.dumps({"mesh": mesh}, default=str), flush=True)
 
     entries = []
     for kname, row in rows.items():

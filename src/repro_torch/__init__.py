@@ -12,6 +12,10 @@ package imports neither JAX nor ``repro``.
   PyTorch versions.
 * :mod:`repro_torch.indexing` — the WAH bitmap index (paper §4).
 * :mod:`repro_torch.convert` — host arrays to tensors.
+* :mod:`repro_torch.models` and :mod:`repro_torch.serve` — the dense LM,
+  its serving engine and the serve mesh.
+* :mod:`repro_torch.net` — nodes, remote actor handles and the
+  spill-based wire format across processes.
 
 Entry points run on the CUDA device unless the caller asks for the CPU.
 """

@@ -278,7 +278,7 @@ class ActorSystem:
         watcher would never hear about the death. If the target is (or
         just became) dead, the ``DownMessage`` is delivered immediately.
 
-        Remote targets (``repro.net.RemoteActorRef``) carry their own
+        Remote targets (``repro_torch.net.RemoteActorRef``) carry their own
         registration path; dispatching here keeps ``system.monitor`` the
         single network-transparent entry point.
         """
@@ -309,7 +309,8 @@ class ActorSystem:
         """One-way link registration: when ``target`` dies, ``listener``
         receives an :class:`ExitMessage`. Re-checks liveness under the
         target's lock and delivers immediately when the target is already
-        dead (the cross-node link in ``repro.net`` is two such halves)."""
+        dead (the cross-node link in ``repro_torch.net`` is two such
+        halves)."""
         st = self._actors.get(target.actor_id)
         if st is not None:
             with st.lock:

@@ -382,8 +382,8 @@ class ActorPool:
     themselves.
 
     Pools are network-transparent: members may be
-    :class:`~repro.net.RemoteActorRef`\\ s (they quack identically and key
-    the routing tables by their ``"<peer>/<id>"`` ids). Off-node refs have
+    :class:`~repro_torch.net.RemoteActorRef`\\ s (they quack identically and
+    key the routing tables by their ``"<peer>/<id>"`` ids). Off-node refs have
     no local device, so placement preference never selects them for a
     device-resident payload — when *no* member matches the payload's
     device, a round-robin pool falls back to round-robin over everyone

@@ -5,7 +5,7 @@ lands. As the reproduction grew, that decision scattered into five private
 policies: :meth:`Graph._place` ranked by live DeviceRef bytes,
 :meth:`ActorPool._pick` by payload residency, ``ChunkScheduler`` kept its
 own preferred-candidate sets, ``MeshRouter`` used EWMA×inflight, and
-``repro.net`` int8-compressed at whatever boundary it happened to cross.
+``repro_torch.net`` int8-compressed at whatever boundary it happened to cross.
 This module unifies them behind a single process-wide
 :class:`PlacementService` that owns
 
@@ -14,7 +14,7 @@ This module unifies them behind a single process-wide
   :class:`~repro_torch.core.manager.Device` wrappers),
 * the **wire cost source** — a :class:`WireCostModel` of per-hop latency
   and bytes-on-wire for raw vs int8 transfers, seeded from BENCH_PR5's
-  measured numbers and refined online from observed ``repro.net``
+  measured numbers and refined online from observed ``repro_torch.net``
   round-trips (:meth:`PlacementService.observe_hop`), and
 * the **replica cost source** — mesh load snapshots fed in through
   :meth:`PlacementService.observe_replica`.
@@ -52,7 +52,7 @@ __all__ = [
 # wire cost model
 # ----------------------------------------------------------------------------
 class WireCostModel:
-    """Per-hop cost of moving a payload across ``repro.net``.
+    """Per-hop cost of moving a payload across ``repro_torch.net``.
 
     A hop costs ``latency + wire_bytes / throughput``; int8 compression
     shrinks ``wire_bytes`` by :attr:`int8_ratio` at the price of a
@@ -164,7 +164,7 @@ class WireCostModel:
 
     def choose_compress(self, nbytes: int,
                         peer: Optional[str] = None) -> bool:
-        """The wire-boundary decision ``repro.net`` delegates here when a
+        """The wire-boundary decision ``repro_torch.net`` delegates here when a
         node is configured with ``compress="auto"``."""
         return nbytes >= self.min_compress_bytes and \
             self.amortizes(nbytes, peer)
@@ -244,7 +244,7 @@ class PlacementDecision:
 class NodeTarget:
     """A remote node as a graph-placement candidate.
 
-    Wraps a :class:`~repro.net.NodeRuntime` and the name of a connected
+    Wraps a :class:`~repro_torch.net.NodeRuntime` and the name of a connected
     peer; :meth:`spawn` lands a kernel declaration in the peer's actor
     system via ``spawn_remote`` and returns the network-transparent
     handle, so a remotely placed graph node needs no data-path changes —
@@ -506,7 +506,7 @@ class PlacementService:
 
     def observe_hop(self, peer: Optional[str], nbytes: int,
                     seconds: float, *, compressed: bool = False) -> None:
-        """``repro.net`` reports observed request round-trips here; the
+        """``repro_torch.net`` reports observed request round-trips here; the
         wire model refines its latency/throughput estimates from them."""
         with self._lock:
             self.wire.observe(nbytes, seconds, compressed=compressed,

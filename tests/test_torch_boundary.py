@@ -32,6 +32,10 @@ def test_port_imports_no_jax_and_no_repro():
         import repro_torch.dist, repro_torch.dist.step
         import repro_torch.launch, repro_torch.launch.serve
         import repro_torch.models.model, repro_torch.models.attention
+        import repro_torch.net, repro_torch.net.node, repro_torch.net.wire
+        import repro_torch.net.demo, repro_torch.serve.mesh
+        import repro_torch.launch.node, repro_torch.launch.serve_mesh
+        import repro_torch.dist.collectives
         bad = sorted(m for m in sys.modules
                      if m.startswith("jax") or m == "repro"
                      or m.startswith("repro."))
@@ -82,6 +86,26 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
             ["--arch", "qwen3-1.7b", "--paged", "--requests", "1",
              "--steps", "1"])))
         print("page_pool", raises(lambda: PagePool([((1,), "float32")])))
+        from repro_torch.dist.collectives import quantize_ref
+        from repro_torch.launch import serve_mesh
+        from repro_torch.launch.node import run_worker
+        from repro_torch.net import NodeRuntime, demo, wire
+        print("node", raises(lambda: NodeRuntime(system, name="n")))
+        print("run_worker", raises(lambda: run_worker(("127.0.0.1", 1),
+                                                      "w")))
+        print("net_demo", raises(lambda: demo.main(n=8, chunks=1)))
+        print("serve_mesh", raises(lambda: serve_mesh.main(
+            ["--duration", "0.1"])))
+        print("toy_engine", raises(lambda: serve_mesh.toy_engine(system)))
+        print("model_engine", raises(lambda: serve_mesh.model_engine(
+            system)))
+        print("quantize", raises(lambda: quantize_ref(np.ones(3))))
+        spilled = DeviceRef(torch.ones(2)).spill()
+        print("decode", raises(lambda: wire.decode(wire.encode((spilled,)))))
+        with ActorSystem(max_workers=1, device="cpu") as cpu_system:
+            node = NodeRuntime(cpu_system, name="c")
+            print("asked_node", node.unspill_device)
+            node.shutdown()
         print("asked_launch", launch_serve.main(
             ["--arch", "qwen3-1.7b", "--requests", "2", "--batch", "2",
              "--steps", "2", "--device", "cpu"]))
@@ -98,13 +122,16 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
     out = proc.stdout
     for name in ("find_device", "default_device", "spawn", "put", "convert",
                  "mandelbrot", "model", "launch_serve", "launch_paged",
-                 "page_pool"):
+                 "page_pool", "node", "run_worker", "net_demo",
+                 "serve_mesh", "toy_engine", "model_engine", "quantize",
+                 "decode"):
         assert f"{name} True" in out, out
     assert "devices []" in out
     assert "cpu cpu:0 cpu" in out
     assert "asked [2.0, 2.0]" in out
     assert "system cpu:0" in out
     assert "asked_launch 0" in out
+    assert "asked_node cpu" in out
 
 
 def test_find_device_raises_lookup_error_here():

@@ -694,3 +694,119 @@ def test_launch_serve_binds_the_card(cuda_device, capsys):
     assert launch_serve.main(["--arch", "qwen3-1.7b", "--requests", "4",
                               "--batch", "4", "--steps", "4"]) == 0
     assert "tok/s" in capsys.readouterr().out
+
+
+# -- the network layer on the card -------------------------------------------
+@pytest.fixture()
+def card_nodes(cuda_device):
+    from repro_torch.net import NodeRuntime
+    sa = ActorSystem("card-a", max_workers=4)
+    sb = ActorSystem("card-b", max_workers=4)
+    na = NodeRuntime(sa, name="a", listen=("127.0.0.1", 0))
+    nb = NodeRuntime(sb, name="b")
+    nb.connect(na.address)
+    assert na.wait_for_peer("b", 30)
+    yield sa, sb, na, nb
+    na.shutdown()
+    nb.shutdown()
+    sa.shutdown()
+    sb.shutdown()
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_device_ref_hop_between_nodes_on_the_card(card_nodes, cuda_device,
+                                                  compress):
+    """Two nodes in one process, both bound to cuda:0: a DeviceRef sent to
+    a remote stage and back spills and unspills once per hop on each side
+    (one shared registry: two of each) and lands on the card, equal to
+    the same computation on the CPU — through the int8 codec of each hop
+    when compressed."""
+    from repro_torch.core import memory_stats, reset_transfer_stats
+    from repro_torch.dist.collectives import dequantize_ref, quantize_ref
+    from repro_torch.net.demo import stage_square
+
+    def codec(t):
+        return dequantize_ref(*quantize_ref(t)).array
+
+    sa, sb, na, nb = card_nodes
+    assert na.unspill_device == cuda_device == nb.unspill_device
+    na.compress = nb.compress = compress
+    nb.publish("sq", sb.spawn(stage_square))
+    remote = na.remote_actor("b", "sq", timeout=60)
+    x = torch.linspace(-3, 3, 4096, device=cuda_device)
+    ref = DeviceRef(x.clone())
+    reset_transfer_stats()
+    out = remote.ask(ref, timeout=60)
+    stats = memory_stats()
+    assert stats["spills"] == 2 and stats["unspills"] == 2, stats
+    assert out.device == cuda_device and not ref.is_spilled
+    host = x.cpu()
+    want = codec(codec(host).square()) if compress else host * host
+    assert torch.equal(out.array.cpu(), want)
+
+
+def test_int8_codec_on_the_card_equals_the_cpu(cuda_device):
+    """Bit for bit, over absmax values where absmax × f32(1/127) misses
+    absmax / 127 (the card's scalar division) as well as those where it
+    does not."""
+    from repro_torch.dist.collectives import dequantize_ref, quantize_ref
+    rng = np.random.default_rng(5)
+    sweep = [np.array([a, -a / 3, a / 7], np.float32)
+             for a in np.linspace(0.5, 10, 500, dtype=np.float32)]
+    inv = np.float32(1) / np.float32(127)
+    assert sum(x[0] * inv != x[0] / np.float32(127) for x in sweep) > 10
+    for x in [rng.standard_normal(1 << 20).astype(np.float32) * 7,
+              np.array([127, 2.5, -2.5, 0.5, -1.5, 126.5], np.float32),
+              np.zeros(9, np.float32)] + sweep:
+        host = torch.from_numpy(x)
+        q_cpu, s_cpu = quantize_ref(host)
+        q_gpu, s_gpu = quantize_ref(host.to(cuda_device))
+        assert q_gpu.device == cuda_device and s_gpu == s_cpu
+        assert torch.equal(q_gpu.array.cpu(), q_cpu.array)
+        for dt in (torch.float32, torch.bfloat16):
+            a = dequantize_ref(q_gpu, s_gpu, dtype=dt).array.cpu()
+            b = dequantize_ref(q_cpu, s_cpu, dtype=dt).array
+            assert a.dtype == dt and torch.equal(a, b)
+
+
+def test_bf16_leaf_and_ref_cross_the_wire_as_bf16(cuda_device):
+    from repro_torch.net import wire
+    x = torch.randn(5, 7, device=cuda_device).bfloat16()
+    leaf, ref = wire.decode(wire.encode((x, DeviceRef(x.clone()))),
+                            device=cuda_device)
+    assert leaf.dtype == torch.bfloat16 and leaf.device.type == "cpu"
+    assert torch.equal(leaf, x.cpu())
+    assert ref.dtype == torch.bfloat16 and ref.device == cuda_device
+    assert torch.equal(ref.array, x)
+
+
+def test_run_worker_binds_the_card(cuda_device):
+    """A worker process started by spawn with device="cuda" binds its own
+    cuda:0: refs it is sent land there, and its node says so."""
+    import multiprocessing as mp
+
+    from repro_torch.launch.node import run_worker
+    from repro_torch.net import NodeRuntime
+    from repro_torch.net.demo import stage_square
+    system = ActorSystem("card-driver", max_workers=4)
+    node = NodeRuntime(system, name="driver", listen=("127.0.0.1", 0))
+    child = mp.get_context("spawn").Process(
+        target=run_worker, args=(node.address, "card-worker"),
+        kwargs={"device": "cuda"}, daemon=True)
+    child.start()
+    try:
+        assert node.wait_for_peer("card-worker", 120)
+        assert node.peer_stats("card-worker", timeout=60)["device"] == "cuda:0"
+        sq = node.spawn_remote("card-worker", stage_square, timeout=60)
+        x = torch.arange(16, dtype=torch.float32, device=cuda_device)
+        out = sq.ask(DeviceRef(x), timeout=60)
+        assert out.device == cuda_device and torch.equal(out.array, x * x)
+        worker = node.peer_stats("card-worker", timeout=60)
+        assert worker["spills"] == 1 and worker["unspills"] == 1, worker
+    finally:
+        node.shutdown()
+        system.shutdown()
+        if child.is_alive():
+            child.kill()
+        child.join(timeout=30)
+    assert not child.is_alive()
