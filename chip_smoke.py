@@ -25,12 +25,26 @@ port's main path through the entry points a user calls:
   all-card frame;
 * ``Graph.map_over`` of a one-input matmul kernel over an 8192x4096 f32
   ``DeviceRef``, 4 chunks on 2 replicas, with no host transfer;
+* training at qwen3-1.7b's widths (``repro_torch.launch.train``,
+  ``dist.step``, ``dist.fault``): a 2-layer f32 train step on the card
+  against the same step on the CPU, and ``grad_accum`` 4 against the full
+  batch; 12 steps of ``launch.train.run --full`` (all 28 layers, bf16
+  parameters, f32 AdamW state, remat "full") at 8 x 512 tokens, then 10
+  steps on one batch that must lower the loss, one of them profiled for
+  the device time against the step's bound; ``RecoverableTrainer`` (a
+  fault at step 3, the final state equal leaf for leaf to an unfaulted
+  run's) and ``ElasticDPDriver`` (4 workers, one dying) in a child
+  process under deterministic algorithms, at 1 layer with the
+  vocabulary cut to 8192; and the llama3-8b prefill at full width (32
+  layers, random bf16 weights from a seed, 1 x 2048 tokens) with the
+  flash-attention kernel against the plain attention. No kernel runs in
+  a gradient: B6 is forward only;
 * the qwen3-1.7b prefill forward at full width (28 layers, random bf16
   weights from a seed, 2 x 2048 tokens) with the flash-attention kernel,
   against the same forward with the plain attention, and an f32 forward
   at 1 x 512 tokens (a phase of its own: 28 launches of B6's f32 kernel).
-  B6's bf16 kernel is also timed against SDPA at the prefill's own launch
-  shape, and its registers, spills and shared memory are printed. B6's f32
+  B6's bf16 kernel is also timed against SDPA at the qwen3 and llama3-8b
+  prefills' own launch shapes, and its registers, spills and shared memory are printed. B6's f32
   kernel is timed against SDPA in f32 (device time and host time a call)
   at the layer shape and at the f32 prefill's own launch shape;
 * serving at qwen3-1.7b's full width with the prefill phase's random
@@ -77,8 +91,9 @@ Each main-path phase sets every kernel's launch counts to 0 before it and
 reads them after it; a kernel of the phase that was not launched fails
 the run, and so does a ``build_wah_index`` that is not one
 ``radix_histogram`` and four ``radix_onesweep`` launches. Any failure
-exits non-zero. The last two lines are a JSON object with one entry per
-kernel and the JSON result line.
+exits non-zero. The serve, mesh and train phases each print a JSON line
+of their readings; the last two lines are a JSON object with one entry
+per kernel and the JSON result line.
 
 Without a CUDA device it exits with code 2 and prints no result.
 """
@@ -171,6 +186,10 @@ PREFILL_B, PREFILL_S, PREFILL_F32_S = 2, 2048, 512
 #: prefill phase's own launch (PREFILL_B x PREFILL_S)
 FA_LAYER = (FA_B, FA_H, FA_HKV, FA_S, FA_S, FA_D)
 FA_PREFILL = (PREFILL_B, FA_H, FA_HKV, PREFILL_S, PREFILL_S, FA_D)
+#: B6's bf16 shape at the llama3-8b prefill's own launch (LLAMA_B x 32 (8
+#: KV) heads x LLAMA_S^2 x 128: a GQA group of 4, where qwen3-1.7b has 2)
+LLAMA_B, LLAMA_S = 1, 2048
+FA_LLAMA = (LLAMA_B, 32, 8, LLAMA_S, LLAMA_S, FA_D)
 #: B6's f32 shape at the f32 prefill's own launch (1 x PREFILL_F32_S)
 FA_PREFILL_F32 = (1, FA_H, FA_HKV, PREFILL_F32_S, PREFILL_F32_S, FA_D)
 #: kernel vs plain attention through 28 bf16 layers: the plain path rounds
@@ -185,6 +204,36 @@ PREFILL_TOP1 = 0.9
 #: in f32 both paths are IEEE f32 and differ only in summation order: the
 #: logits are held to 1e-3 of the largest |logit|
 PREFILL_F32_TOL = 1e-3
+#: the train phases, at qwen3-1.7b's widths. Parity: 2 layers in f32
+#: (TF32 off), batch TRAIN_PARITY_B x TRAIN_PARITY_S, one step on the card
+#: against the same step on the CPU; grad_accum TRAIN_ACCUM against the
+#: full batch on the card, at TRAIN_ACCUM rows (one a microbatch). Both are
+#: IEEE f32 and differ in summation order: the loss within 1e-5, grad_norm
+#: 1e-4, every gradient leaf rtol 1e-3 / atol 1e-5 (tests/test_training.py's
+#: limits for accumulated against full-batch gradients)
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_B, TRAIN_PARITY_S = 2, 2, 64
+TRAIN_ACCUM = 4
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-5, 1e-4
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5
+#: full-width training through launch.train.run --full (bf16 parameters,
+#: f32 AdamW state, remat "full"): TRAIN_STEPS steps of TRAIN_B x TRAIN_S;
+#: the first loss within TRAIN_FIRST_LOSS_TOL of ln(vocab) (random
+#: weights: the logits' spread adds about half their variance); then
+#: TRAIN_REPEAT_STEPS steps on one batch at AdamWConfig's default lr must
+#: lower the loss
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_REPEAT_STEPS = 8, 512, 12, 10
+TRAIN_FIRST_LOSS_TOL = 0.15
+#: recovery and elastic DP, in a spawned child under deterministic
+#: algorithms: qwen3-1.7b widths at 1 layer with the vocabulary cut to
+#: RECOVERY_VOCAB (at 151936 a checkpoint of params, m and v writes about
+#: 3.6 GB; at 8192 about 0.7 GB). RecoverableTrainer: RECOVERY_STEPS steps
+#: of RECOVERY_B x RECOVERY_S in bf16, a checkpoint every 2, a fault at
+#: step 3; ElasticDPDriver: ELASTIC_WORKERS workers on the card in f32,
+#: worker 1 dies at step 1, ELASTIC_B rows, held as tests/test_fault.py
+#: holds the JAX ElasticDPDriver (loss 1e-5, gradients 1e-4 / 1e-5)
+RECOVERY_VOCAB, RECOVERY_B, RECOVERY_S = 8192, 4, 64
+RECOVERY_STEPS, RECOVERY_FAIL_AT = 4, 3
+ELASTIC_WORKERS, ELASTIC_B = 4, 8
 #: the serve phases: the launcher's defaults (``--requests 32 --batch 8
 #: --steps 64 --workers 2``; paged: ``--prefill-workers 2 --pages 512``)
 SERVE_REQUESTS, SERVE_BATCH, SERVE_STEPS, SERVE_WORKERS = 32, 8, 64, 2
@@ -409,6 +458,36 @@ def prefill_model(rng, dev):
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to(dev)
     return cfg, model, model.init(0), tokens
+
+
+def prefill_gates(name: str, logits: torch.Tensor, plain: torch.Tensor
+                  ) -> dict:
+    """A bf16 prefill's logits with the flash-attention kernel against the
+    same forward with the plain attention: finite, last-position
+    max_abs_err within PREFILL_BF16_TOL of max |logit|, relative RMS within
+    PREFILL_BF16_RMS_TOL, top-1 agreement at least PREFILL_TOP1."""
+    check(logits.shape == plain.shape and bool(torch.isfinite(logits).all()),
+          f"{name}: logits not finite or of the wrong shape")
+    last_err = max_abs_err(logits[:, -1].float(), plain[:, -1].float())
+    top1_last = float((logits[:, -1].argmax(-1) ==
+                       plain[:, -1].argmax(-1)).float().mean())
+    top1_all = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    scale = float(plain[:, -1].float().abs().max())
+    # RMS of the difference over all positions, relative to the logits' RMS
+    rms_rel = float((logits.float() - plain.float()).square().mean().sqrt() /
+                    plain.float().square().mean().sqrt())
+    log(f"{name}: last-position logits max_abs_err {last_err} (max |logit| "
+        f"{scale}, ratio {last_err / scale}), relative RMS error over all "
+        f"positions {rms_rel}, top-1 agreement last position {top1_last}, "
+        f"all positions {top1_all}")
+    check(top1_all >= PREFILL_TOP1, f"{name}: top-1 agreement "
+          f"{top1_all} < {PREFILL_TOP1}")
+    check(last_err <= PREFILL_BF16_TOL * scale, f"{name}: last-position "
+          f"error {last_err} > {PREFILL_BF16_TOL} x {scale}")
+    check(rms_rel <= PREFILL_BF16_RMS_TOL, f"{name}: relative RMS "
+          f"error {rms_rel} > {PREFILL_BF16_RMS_TOL}")
+    return dict(max_err_ratio=last_err / scale, rms_rel=rms_rel,
+                top1_last=top1_last, top1_all=top1_all)
 
 
 # -- the serve phases -----------------------------------------------------------
@@ -905,6 +984,363 @@ def mesh_procs_phase(run_phase, dev) -> dict:
     return summary
 
 
+# -- the train phases ----------------------------------------------------------
+def worst_ratio(got, want, rtol: float, atol: float) -> float:
+    """max |got - want| / (atol + rtol |want|) over the leaves of two trees
+    of tensors (on any devices): at most 1 within the limits."""
+    import torch.utils._pytree as pytree
+    worst = 0.0
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        worst = max(worst, float(((a - b).abs() /
+                                  (atol + rtol * b.abs())).max()))
+    return worst
+
+
+def rel_err(got, want) -> float:
+    return abs(float(got) - float(want)) / abs(float(want))
+
+
+def train_parity_phase(run_phase, dev) -> dict:
+    """One ``build_train_step`` step at qwen3-1.7b's widths (2 layers, f32)
+    on the card against the same step on the CPU, parameters from
+    ``Model.init(0)`` on the card copied to the CPU; then ``grad_accum``
+    TRAIN_ACCUM against the full batch on the card."""
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist.step import (build_train_step, init_train_state,
+                                       loss_and_grads)
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              n_layers=TRAIN_PARITY_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    card, cpu = Model(cfg, device=dev), Model(cfg, device="cpu")
+    ocfg = AdamWConfig()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(card, 0, ocfg)
+    state_cpu = pytree.tree_map(lambda t: t.cpu(), state)
+    batch = SyntheticLM(cfg, batch=TRAIN_PARITY_B, seq=TRAIN_PARITY_S,
+                        seed=0).batch_at(0)
+    name = (f"train step qwen3-1.7b widths {TRAIN_PARITY_LAYERS} layers f32 "
+            f"{TRAIN_PARITY_B}x{TRAIN_PARITY_S}")
+    new, m = run_phase(name, [], lambda: build_train_step(card, ocfg)(
+        state, batch))
+    check(all(t.device == dev for t in pytree.tree_leaves(new)),
+          f"{name}: the new state left the card")
+    del new
+    _, m_cpu = build_train_step(cpu, ocfg)(state_cpu, batch)
+    _, _, g = loss_and_grads(card, state["params"], batch)
+    _, _, g_cpu = loss_and_grads(cpu, state_cpu["params"], batch)
+    out = dict(loss=float(m["loss"]), loss_cpu=float(m_cpu["loss"]),
+               loss_rel=rel_err(m["loss"], m_cpu["loss"]),
+               grad_norm_rel=rel_err(m["grad_norm"], m_cpu["grad_norm"]),
+               grad_worst=worst_ratio(g, g_cpu, TRAIN_GRAD_RTOL,
+                                      TRAIN_GRAD_ATOL))
+    del g, g_cpu, state_cpu
+    # grad_accum against the full batch, on the card
+    batch4 = SyntheticLM(cfg, batch=TRAIN_ACCUM, seq=TRAIN_PARITY_S,
+                         seed=0).batch_at(1)
+    _, m_full = build_train_step(card, ocfg)(state, batch4)
+    _, m_acc = build_train_step(card, ocfg, grad_accum=TRAIN_ACCUM)(
+        state, batch4)
+    _, _, g_full = loss_and_grads(card, state["params"], batch4)
+    _, _, g_acc = loss_and_grads(card, state["params"], batch4,
+                                 grad_accum=TRAIN_ACCUM)
+    out.update(accum_loss_rel=rel_err(m_acc["loss"], m_full["loss"]),
+               accum_grad_norm_rel=rel_err(m_acc["grad_norm"],
+                                           m_full["grad_norm"]),
+               accum_grad_worst=worst_ratio(g_acc, g_full, TRAIN_GRAD_RTOL,
+                                            TRAIN_GRAD_ATOL),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{name}: card against CPU: loss {out['loss']} ({out['loss_cpu']} "
+        f"on the CPU, rel {out['loss_rel']}, limit {TRAIN_LOSS_RTOL}), "
+        f"grad_norm rel {out['grad_norm_rel']} (limit {TRAIN_GNORM_RTOL}), "
+        f"worst gradient leaf {out['grad_worst']} of rtol {TRAIN_GRAD_RTOL} "
+        f"+ atol {TRAIN_GRAD_ATOL}; grad_accum {TRAIN_ACCUM} against the "
+        f"full batch: loss rel {out['accum_loss_rel']}, grad_norm rel "
+        f"{out['accum_grad_norm_rel']}, worst leaf "
+        f"{out['accum_grad_worst']}; peak {out['peak_gb']:.2f} GB")
+    for tag in ("", "accum_"):
+        check(out[f"{tag}loss_rel"] <= TRAIN_LOSS_RTOL,
+              f"{name}: {tag}loss differs by {out[f'{tag}loss_rel']}")
+        check(out[f"{tag}grad_norm_rel"] <= TRAIN_GNORM_RTOL,
+              f"{name}: {tag}grad_norm differs by "
+              f"{out[f'{tag}grad_norm_rel']}")
+        check(out[f"{tag}grad_worst"] <= 1.0,
+              f"{name}: a {tag}gradient leaf differs beyond its limits "
+              f"({out[f'{tag}grad_worst']})")
+    return out
+
+
+def train_bound_ms(cfg, tokens: int, batch: int, seq: int) -> tuple:
+    """The least time of one train step: 6·N·T products (forward and
+    backward, no recompute) plus causal attention's 6·B·H·S²·Dh·L (forward
+    QK and PV at 4·B·H·S²·Dh, halved by the mask, times three) at the bf16
+    peak, against reading the state (bf16 parameters, f32 m and v) and
+    writing the new one once. → (bound ms, what bounds it)."""
+    ops = (6.0 * cfg.param_count() * tokens + 6.0 * batch * cfg.n_heads *
+           seq * seq * cfg.resolved_head_dim * cfg.n_layers)
+    state_bytes = cfg.param_count() * (2 + 4 + 4)
+    by_ops, by_bytes = ops_ms(ops, BF16_FLOPS), bytes_ms(2 * state_bytes)
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
+
+
+def train_full_phase(run_phase, dev) -> dict:
+    """``launch.train.run`` on qwen3-1.7b ``--full``: TRAIN_STEPS steps of
+    TRAIN_B x TRAIN_S; then TRAIN_REPEAT_STEPS ``build_train_step`` steps
+    on one batch, one of them profiled for the device's busy time."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist.step import build_train_step, init_train_state
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    cfg = get_config("qwen3-1.7b")
+    args = launch_train.parse_args(
+        ["--arch", "qwen3-1.7b", "--full", "--steps", str(TRAIN_STEPS),
+         "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--log-every", "4",
+         "--device", str(dev)])
+    name = (f"train qwen3-1.7b --full {TRAIN_STEPS} steps of "
+            f"{TRAIN_B}x{TRAIN_S}")
+    torch.cuda.reset_peak_memory_stats()
+    rows = run_phase(name, [], lambda: launch_train.run(args, log=log))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(rows) == TRAIN_STEPS and
+          all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in rows), f"{name}: a loss or grad_norm is not finite")
+    ln_v = float(np.log(cfg.vocab_size))
+    first = rows[0]["loss"]
+    check(abs(first - ln_v) <= TRAIN_FIRST_LOSS_TOL * ln_v,
+          f"{name}: first loss {first} is not within "
+          f"{TRAIN_FIRST_LOSS_TOL} of ln {cfg.vocab_size} = {ln_v}")
+    walls = sorted(r["wall_s"] * 1e3 for r in rows[1:])
+    step_ms = walls[len(walls) // 2]
+
+    # one repeated batch: the loss must fall
+    model = Model(cfg, device=dev)
+    ocfg = AdamWConfig()
+    step = build_train_step(model, ocfg)
+    state = init_train_state(model, 0, ocfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        cfg, batch=TRAIN_B, seq=TRAIN_S, seed=1).batch_at(0).items()}
+    losses, repeat_ms = [], []
+
+    def repeat():
+        nonlocal state
+        for _ in range(TRAIN_REPEAT_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            repeat_ms.append((time.perf_counter() - t0) * 1e3)
+    run_phase(f"train qwen3-1.7b --full {TRAIN_REPEAT_STEPS} steps on one "
+              "batch", [], repeat)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{name}: {TRAIN_REPEAT_STEPS} steps on one batch did not lower "
+          f"the loss: {losses}")
+    # the device's busy time in one profiled step, against the median wall
+    # of the unprofiled steps on the same batch
+    busy = profiled_busy_ms(lambda: step(state, batch))
+    wall = sorted(repeat_ms[1:])[(len(repeat_ms) - 1) // 2]
+    del state, batch, model
+    tokens = TRAIN_B * TRAIN_S
+    bound, bound_by = train_bound_ms(cfg, tokens, TRAIN_B, TRAIN_S)
+    out = dict(steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+               losses=[r["loss"] for r in rows],
+               grad_norms=[r["grad_norm"] for r in rows],
+               first_loss=first, ln_vocab=ln_v, step_wall_ms_median=step_ms,
+               step_wall_ms_first=rows[0]["wall_s"] * 1e3,
+               tok_per_s=tokens / step_ms * 1e3, peak_gb=peak,
+               repeat_losses=losses, step_device_ms=busy,
+               repeat_step_wall_ms_median=wall,
+               idle_share=max(0.0, 1.0 - busy / wall), bound_ms=bound,
+               bound_by=bound_by, params=cfg.param_count())
+    log(f"{name}: losses {[round(x, 4) for x in out['losses']]}; first "
+        f"{first} against ln {cfg.vocab_size} = {ln_v}; grad_norms "
+        f"{[round(x, 3) for x in out['grad_norms']]}")
+    log(f"{name}: step wall median {step_ms:.3f} ms (first step "
+        f"{out['step_wall_ms_first']:.3f}), {out['tok_per_s']:.1f} tok/s; "
+        f"peak {peak:.2f} GB allocated")
+    log(f"{name}: on one batch the loss went {losses[0]} -> {losses[-1]}; a "
+        f"step's device time {busy:.3f} ms (profiled) against a bound of "
+        f"{bound:.3f} ms ({bound_by}; {bound / busy:.3f} of it reached), "
+        f"the steps' median wall {wall:.3f} ms, idle share "
+        f"{out['idle_share']:.4f}")
+    return out
+
+
+def recovery_run(dev) -> dict:
+    """RecoverableTrainer (bit-exact after a fault) and ElasticDPDriver
+    (re-split after a worker's death) on ``dev``; the readings, which the
+    parent holds to their gates."""
+    import dataclasses
+    import tempfile
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ActorSystem
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import fault
+    from repro_torch.dist.step import (build_train_step, init_train_state,
+                                       loss_and_grads)
+    from repro_torch.models import Model
+    from repro_torch.models.layers import plain_tree
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=1,
+                              vocab_size=RECOVERY_VOCAB)
+    model = Model(cfg, device=dev)
+    ocfg = AdamWConfig()
+    data = SyntheticLM(cfg, batch=RECOVERY_B, seq=RECOVERY_S, seed=9)
+    tstep = build_train_step(model, ocfg)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        finals, walls = [], []
+        for tag, fail_at in (("plain", None), ("faulted", RECOVERY_FAIL_AT)):
+            with ActorSystem(f"recovery-{tag}", device=dev) as system:
+                t0 = time.perf_counter()
+                trainer = fault.RecoverableTrainer(
+                    system, tstep, init_train_state(model, 0, ocfg), data,
+                    os.path.join(d, tag), ckpt_every=2)
+                finals.append(trainer.run(RECOVERY_STEPS, fail_at=fail_at))
+                walls.append(time.perf_counter() - t0)
+                out[f"recoveries_{tag}"] = trainer.recoveries
+        leaves = [pytree.tree_leaves(f) for f in finals]
+        out.update(
+            leaves=len(leaves[0]),
+            equal_leaves=sum(a.dtype == b.dtype and torch.equal(a, b)
+                             for a, b in zip(*leaves)),
+            on_card=all(t.device == dev for t in leaves[1]),
+            steps=[int(f["step"]) for f in finals], wall_s=walls,
+            checkpoint_bytes=sum(t.numel() * t.element_size()
+                                 for t in leaves[0]))
+        del finals, leaves
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Model(cfg32, device=dev)
+    params = plain_tree(model32.init(1))
+    data32 = SyntheticLM(cfg32, batch=ELASTIC_B, seq=RECOVERY_S, seed=9)
+
+    def grad_fn(p, batch):
+        loss, _, grads = loss_and_grads(model32, p, batch)
+        return loss, grads
+
+    with ActorSystem("elastic", device=dev) as system:
+        driver = fault.ElasticDPDriver(system, grad_fn,
+                                       n_workers=ELASTIC_WORKERS,
+                                       fail_at={1: 1})
+        _, _, used0 = driver.step(params, 0, data32.batch_at(0))
+        loss1, grads1, used1 = driver.step(params, 1, data32.batch_at(1))
+    l_ref, g_ref = grad_fn(params, data32.batch_at(1))
+    out.update(used=[used0, used1], elastic_loss_rel=rel_err(loss1, l_ref),
+               elastic_grad_worst=worst_ratio(grads1, g_ref, 1e-4, 1e-5),
+               deterministic=torch.are_deterministic_algorithms_enabled())
+    return out
+
+
+def recovery_child(queue) -> None:
+    """The recovery phase's process: deterministic algorithms (the
+    embedding's backward accumulates with atomics otherwise), cuBLAS's
+    fixed workspace set before CUDA starts."""
+    import traceback
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        queue.put(("ok", recovery_run(torch.device("cuda", 0))))
+    except BaseException:
+        queue.put(("error", traceback.format_exc()))
+        raise
+
+
+def recovery_phase(run_phase) -> dict:
+    """``recovery_run`` in a child process started by ``spawn``, so this
+    process keeps its nondeterministic algorithms and its times."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    name = (f"recovery and elastic DP qwen3-1.7b widths, 1 layer, vocab cut "
+            f"to {RECOVERY_VOCAB} (a checkpoint of the full vocabulary "
+            "writes about 3.6 GB)")
+
+    def body():
+        child = ctx.Process(target=recovery_child, args=(results,))
+        child.start()
+        try:
+            status, payload = results.get(timeout=600)
+        except queue_mod.Empty:
+            payload, status = None, "timeout"
+        child.join(timeout=60)
+        if child.is_alive():
+            child.kill()
+            child.join(timeout=30)
+        check(status == "ok" and child.exitcode == 0,
+              f"recovery child: {status}, exit code {child.exitcode}\n"
+              f"{payload}")
+        return payload
+
+    out = run_phase(name, [], body)
+    log(f"{name}: RecoverableTrainer {RECOVERY_STEPS} steps of "
+        f"{RECOVERY_B}x{RECOVERY_S}, fault at step {RECOVERY_FAIL_AT}: "
+        f"recoveries {out['recoveries_plain']} / {out['recoveries_faulted']}"
+        f", {out['equal_leaves']} of {out['leaves']} leaves torch.equal to "
+        f"the unfaulted run's, steps {out['steps']}, walls "
+        f"{[round(w, 3) for w in out['wall_s']]} s, "
+        f"{out['checkpoint_bytes'] / 1e9:.3f} GB a checkpoint; "
+        f"ElasticDPDriver {ELASTIC_WORKERS} workers: used {out['used']}, "
+        f"loss rel {out['elastic_loss_rel']} (limit 1e-5), worst gradient "
+        f"leaf {out['elastic_grad_worst']} of rtol 1e-4 + atol 1e-5; "
+        f"deterministic {out['deterministic']}")
+    check(out["deterministic"], f"{name}: not under deterministic algorithms")
+    check(out["recoveries_plain"] == 0 and out["recoveries_faulted"] == 1,
+          f"{name}: recoveries {out['recoveries_plain']}, "
+          f"{out['recoveries_faulted']}")
+    check(out["steps"] == [RECOVERY_STEPS] * 2 and out["on_card"],
+          f"{name}: steps {out['steps']}, on the card {out['on_card']}")
+    check(out["equal_leaves"] == out["leaves"],
+          f"{name}: {out['leaves'] - out['equal_leaves']} leaves of the "
+          "faulted run differ from the unfaulted run's")
+    check(out["used"] == [ELASTIC_WORKERS, ELASTIC_WORKERS - 1],
+          f"{name}: the elastic driver used {out['used']} workers")
+    check(out["elastic_loss_rel"] <= 1e-5 and out["elastic_grad_worst"] <= 1,
+          f"{name}: the elastic result differs from one worker's")
+    return out
+
+
+def llama_prefill_phase(run_phase, dev) -> dict:
+    """The llama3-8b prefill at full width (32 layers, random bf16 weights
+    from seed 0), LLAMA_B x LLAMA_S tokens: B6's bf16 kernel at a GQA group
+    of 4, against the plain attention under the qwen3 prefill's gates."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("llama3-8b")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, attn_impl="kernel", device=dev)
+    params = model.init(0)
+    tokens = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (LLAMA_B, LLAMA_S))).to(dev)
+    model.forward(params, {"tokens": tokens})          # warm up
+    name = f"llama3-8b prefill {LLAMA_B}x{LLAMA_S} bf16"
+    t0 = time.perf_counter()
+    logits, _ = run_phase(name, ["flash_attention"],
+                          lambda: model.forward(params, {"tokens": tokens}),
+                          {"flash_attention_bf16": cfg.n_layers})
+    wall = (time.perf_counter() - t0) * 1e3
+    plain, _ = Model(cfg, attn_impl="ref", device=dev).forward(
+        params, {"tokens": tokens})
+    out = prefill_gates(name, logits, plain)
+    out.update(wall_ms=wall, weight_gb=param_bytes(params) / 1e9,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{name}: {out['weight_gb']:.2f} GB of weights, forward wall "
+        f"{wall:.3f} ms, peak {out['peak_gb']:.2f} GB")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1284,11 +1720,11 @@ def main() -> int:
         library_ms=cuda_ms(lambda: sdpa(q, k, v), 10),
         library="F.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True), bf16", instantiations=fa_info)
-    # bf16 at both shapes over several seeds, in bf16 steps: the layer
-    # shape and the prefill's own launch, PREFILL_B x 16 (8 KV) heads x
-    # PREFILL_S^2 x 128, causal
+    # bf16 at three shapes over several seeds, in bf16 steps: the layer
+    # shape and the two prefills' own launches, PREFILL_B x 16 (8 KV) heads
+    # x PREFILL_S^2 x 128 and FA_LLAMA, causal
     sweep = []
-    for shape in (FA_LAYER, FA_PREFILL):
+    for shape in (FA_LAYER, FA_PREFILL, FA_LLAMA):
         for seed in FA_BF16_SEEDS:
             q, k, v = attention_inputs(
                 shape, torch.bfloat16,
@@ -1319,28 +1755,32 @@ def main() -> int:
     rows["flash_attention"]["bf16_sweep"] = sweep
     torch.cuda.empty_cache()
 
-    q, k, v = attention_inputs(
-        FA_PREFILL, torch.bfloat16, torch.Generator(device=dev).manual_seed(0),
-        dev)
-    prefill_shape = dict(
-        shape=list(FA_PREFILL),
-        max_abs_err=sweep[len(FA_BF16_SEEDS)]["max_abs_err"],
-        ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20),
-        plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True),
-                         3),
-        bound_ms=fa_bound_ms(q, k, v),
-        library_ms=cuda_ms(lambda: sdpa(q, k, v), 20),
-        host_us=host_us(lambda: flash_attention(q, k, v, causal=True), 20),
-        library_host_us=host_us(lambda: sdpa(q, k, v), 20))
-    rows["flash_attention"]["prefill_shape"] = prefill_shape
-    for tag, r in ((f"{FA_B}x{FA_H}({FA_HKV})x{FA_S}^2x{FA_D}",
-                    rows["flash_attention"]),
-                   (f"{PREFILL_B}x{FA_H}({FA_HKV})x{PREFILL_S}^2x{FA_D}",
-                    prefill_shape)):
-        log(f"flash_attention bf16 causal {tag}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
-            f"({r['ms'] / r['library_ms']:.2f}x), bound {r['bound_ms']:.4f} "
-            "ms")
+    for key, shape in (("prefill_shape", FA_PREFILL),
+                       ("llama_prefill_shape", FA_LLAMA)):
+        q, k, v = attention_inputs(
+            shape, torch.bfloat16, torch.Generator(device=dev).manual_seed(0),
+            dev)
+        rows["flash_attention"][key] = dict(
+            shape=list(shape),
+            max_abs_err=next(r["max_abs_err"] for r in sweep
+                             if r["shape"] == list(shape) and r["seed"] == 0),
+            ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20),
+            plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v,
+                                                         causal=True), 3),
+            bound_ms=fa_bound_ms(q, k, v),
+            library_ms=cuda_ms(lambda: sdpa(q, k, v), 20),
+            host_us=host_us(lambda: flash_attention(q, k, v, causal=True),
+                            20),
+            library_host_us=host_us(lambda: sdpa(q, k, v), 20))
+        del q, k, v
+    prefill_shape = rows["flash_attention"]["prefill_shape"]
+    for r in (rows["flash_attention"], prefill_shape,
+              rows["flash_attention"]["llama_prefill_shape"]):
+        b_, h_, hkv_, s_, _, d_ = r.get("shape", FA_LAYER)
+        log(f"flash_attention bf16 causal {b_}x{h_}({hkv_})x{s_}^2x{d_}: "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), "
+            f"bound {r['bound_ms']:.4f} ms")
     log(f"flash_attention bf16: {prefill_shape['host_us']:.1f} us of host "
         "work a call (wrapper, custom op, tensor maps, launch); SDPA "
         f"{prefill_shape['library_host_us']:.1f} us")
@@ -1515,6 +1955,16 @@ def main() -> int:
         del out, want, w_map
         torch.cuda.empty_cache()
 
+    # -- training, and the llama3-8b prefill --------------------------------------
+    train = {"card": card,
+             "parity": train_parity_phase(run_phase, dev)}
+    torch.cuda.empty_cache()
+    train["full"] = train_full_phase(run_phase, dev)
+    torch.cuda.empty_cache()
+    train["recovery"] = recovery_phase(run_phase)
+    train["llama3_8b_prefill"] = llama_prefill_phase(run_phase, dev)
+    torch.cuda.empty_cache()
+
     cfg, model, params, tokens = prefill_model(rng, dev)
     model.forward(params, {"tokens": tokens})          # warm up
     logits, _ = run_phase(
@@ -1532,29 +1982,12 @@ def main() -> int:
     forward_ms.sort()
     plain, _ = Model(cfg, attn_impl="ref", device=dev).forward(
         params, {"tokens": tokens})
-    check(logits.shape == (PREFILL_B, PREFILL_S, cfg.vocab_size) and
-          bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    last_err = max_abs_err(logits[:, -1].float(), plain[:, -1].float())
-    top1_last = float((logits[:, -1].argmax(-1) ==
-                       plain[:, -1].argmax(-1)).float().mean())
-    top1_all = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
-    scale = float(plain[:, -1].float().abs().max())
-    # RMS of the difference over all positions, relative to the logits' RMS
-    rms_rel = float((logits.float() - plain.float()).square().mean().sqrt() /
-                    plain.float().square().mean().sqrt())
+    check(logits.shape == (PREFILL_B, PREFILL_S, cfg.vocab_size),
+          f"prefill logits of shape {tuple(logits.shape)}")
     log(f"qwen3-1.7b prefill bf16: warm forward median of 5 "
         f"{forward_ms[2]:.3f} ms (min {forward_ms[0]:.3f}, max "
-        f"{forward_ms[-1]:.3f}); "
-        f"last-position logits max_abs_err {last_err} (max |logit| "
-        f"{scale}, ratio {last_err / scale}), relative RMS error over all "
-        f"positions {rms_rel}, top-1 agreement last position {top1_last}, "
-        f"all positions {top1_all}")
-    check(top1_all >= PREFILL_TOP1, f"bf16 prefill: top-1 agreement "
-          f"{top1_all} < {PREFILL_TOP1}")
-    check(last_err <= PREFILL_BF16_TOL * scale, f"bf16 prefill: last-position "
-          f"error {last_err} > {PREFILL_BF16_TOL} x {scale}")
-    check(rms_rel <= PREFILL_BF16_RMS_TOL, f"bf16 prefill: relative RMS "
-          f"error {rms_rel} > {PREFILL_BF16_RMS_TOL}")
+        f"{forward_ms[-1]:.3f})")
+    prefill_gates("qwen3-1.7b prefill bf16", logits, plain)
     del logits, plain
     torch.cuda.empty_cache()
 
@@ -1598,6 +2031,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh["processes"] = mesh_procs_phase(run_phase, dev)
     print(json.dumps({"mesh": mesh}, default=str), flush=True)
+    print(json.dumps({"train": train}), flush=True)
 
     entries = []
     for kname, row in rows.items():

@@ -1,13 +1,15 @@
 """Architecture registry of the port: arch id → exact published config.
 
 Only the architectures the port can run are listed: the ``dense``
-decoder family, today qwen3-1.7b. The JAX package's other configs (moe,
-ssm, hybrid, encdec, vlm) come with their model families (ROADMAP A10).
+decoder family (qwen3-1.7b, llama3-8b, qwen1.5-32b, nemotron-4-340b).
+The JAX package's other configs (moe, ssm, hybrid, encdec, vlm) come
+with their model families (ROADMAP A10).
 """
-from . import qwen3_1p7b
+from . import llama3_8b, nemotron4_340b, qwen3_1p7b, qwen15_32b
 from .base import ModelConfig
 
-_MODULES = {m.ARCH: m for m in (qwen3_1p7b,)}
+_MODULES = {m.ARCH: m for m in (qwen3_1p7b, llama3_8b, qwen15_32b,
+                                nemotron4_340b)}
 
 ARCHS = tuple(_MODULES)
 

@@ -6,7 +6,9 @@ tree into tensors on one device with every dtype kept, uint32 and
 bfloat16 included, so both packages compute from identical inputs.
 :func:`params_from_jax` does the same for a model's parameters, so both
 packages run one set of random weights. :func:`cache_from_jax` carries a
-decode cache across, so both packages decode from one nonzero cache.
+decode cache across, so both packages decode from one nonzero cache, and
+:func:`train_state_from_jax` a train state, so both packages train from
+one state.
 """
 from __future__ import annotations
 
@@ -14,10 +16,11 @@ import torch
 import torch.utils._pytree as pytree
 
 from .core.memref import as_device_array
-from .models.layers import ParamTree
+from .models.layers import ParamTree, plain_tree
 from .models.transformer import layer_groups
 
-__all__ = ["from_jax_arrays", "params_from_jax", "cache_from_jax"]
+__all__ = ["from_jax_arrays", "params_from_jax", "cache_from_jax",
+           "train_state_from_jax"]
 
 
 def from_jax_arrays(tree, device=None):
@@ -43,7 +46,12 @@ def params_from_jax(cfg, jax_params, device=None) -> ParamTree:
     here every layer becomes a module of its own, in execution order.
     Dtypes are kept, bfloat16 included. ``device`` as in
     :func:`from_jax_arrays`."""
-    tree = from_jax_arrays(jax_params, device)
+    return ParamTree(_unstack(cfg, from_jax_arrays(jax_params, device)))
+
+
+def _unstack(cfg, tree) -> dict:
+    """A JAX parameter-shaped tree of tensors (stacked groups) in the
+    port's layout: one entry of ``layers`` a layer."""
     layers = []
     for gi, (unit, count) in enumerate(layer_groups(cfg)):
         group = tree["groups"][gi]
@@ -55,7 +63,7 @@ def params_from_jax(cfg, jax_params, device=None) -> ParamTree:
               "final_norm": tree["final_norm"]}
     if "head" in tree:
         params["head"] = tree["head"]
-    return ParamTree(params)
+    return params
 
 
 def cache_from_jax(cfg, jax_cache, device=None) -> dict:
@@ -86,3 +94,22 @@ def cache_from_jax(cfg, jax_cache, device=None) -> dict:
                         f"{cfg.resolved_head_dim}]")
     cache["len"] = cache["len"].to(torch.int32).reshape(())
     return cache
+
+
+def train_state_from_jax(cfg, jax_state, device=None) -> dict:
+    """The port's train state (``dist.step.init_train_state``'s pytree)
+    from the JAX package's, given as numpy arrays (or anything with
+    ``__array__``): ``params`` and the AdamW ``m`` and ``v`` unstacked as
+    :func:`params_from_jax` unstacks the parameters, in
+    :func:`~repro_torch.models.layers.plain_tree`'s form; ``count`` and
+    ``step`` as int32 0-d tensors. ``device`` as in
+    :func:`from_jax_arrays`."""
+    tree = from_jax_arrays(jax_state, device)
+    opt = tree["opt"]
+    return {
+        "params": plain_tree(_unstack(cfg, tree["params"])),
+        "opt": {"m": plain_tree(_unstack(cfg, opt["m"])),
+                "v": plain_tree(_unstack(cfg, opt["v"])),
+                "count": opt["count"].to(torch.int32).reshape(())},
+        "step": tree["step"].to(torch.int32).reshape(()),
+    }

@@ -1,4 +1,4 @@
 """Model substrate of the port: layers, attention, the dense decoder."""
-from .model import Model
+from .model import Model, serve_input_specs, train_input_specs
 
-__all__ = ["Model"]
+__all__ = ["Model", "serve_input_specs", "train_input_specs"]

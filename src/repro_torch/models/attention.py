@@ -5,7 +5,9 @@ RoPE — the port of the JAX package's ``repro/models/attention.py`` up to
 ``impl="kernel"`` is the counterpart of the JAX package's ``"pallas"``:
 it runs ``ops.flash_attention``, which launches the hand-written flash
 kernel for CUDA tensors and takes its plain version on the CPU; the
-kernel has no logit softcap, so a config with one raises there.
+kernel has no logit softcap, so a config with one raises there, and it
+has no backward, so it raises under grad on every device (the CPU's
+plain version would differentiate, the card's kernel would not).
 ``impl="ref"`` (the default, as ``"xla"`` is in JAX) is the grouped-head
 einsum, which never repeats K/V per query head.
 
@@ -95,6 +97,10 @@ def _mha(q, k, v, *, causal: bool, window: Optional[int],
     """q: [B,S,H,D] → [B,S,H,D]; k/v: [B,S,Hkv,D]."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if impl == "kernel":
+        if q.requires_grad or k.requires_grad or v.requires_grad:
+            raise NotImplementedError(
+                "attn_impl='kernel' under grad: the flash attention kernel "
+                "is forward only (ROADMAP B6); train with attn_impl='ref'")
         if softcap is not None:
             raise NotImplementedError(
                 "attn_impl='kernel': the flash attention kernel has no logit "

@@ -1,11 +1,12 @@
-"""Shared model layers: norms, rotary embeddings, the MLP, initializers —
+"""Shared model layers: norms, rotary embeddings, the MLPs, initializers —
 the port of the JAX package's ``repro/models/layers.py``.
 
 Pure functions over parameter trees that read like the JAX package's
 dicts (``p["scale"]``): :class:`ParamTree` holds them as nested
-``nn.Module``\\ s, so a model's layers are modules of their own on one
-device. Initializers take an explicit ``torch.Generator`` and device and
-return plain dicts of tensors. ``apply_m_rope`` and
+``nn.Module``\\ s, so a served model's layers are modules of their own
+on one device; training takes the same tensors as plain nested dicts
+(:func:`plain_tree`). Initializers take an explicit ``torch.Generator``
+and device and return plain dicts of tensors. ``apply_m_rope`` and
 ``sinusoidal_positions`` come with the vlm and encdec families.
 """
 from __future__ import annotations
@@ -17,8 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ParamTree", "init_norm", "apply_norm", "rope_freqs",
-           "rope_tables", "rotate", "apply_rope", "init_mlp", "apply_mlp",
+__all__ = ["ParamTree", "plain_tree", "init_norm", "apply_norm", "rope_freqs",
+           "rope_tables", "rotate", "apply_rope", "MLP_KINDS", "init_mlp",
+           "apply_mlp",
            "init_embedding", "normal"]
 
 
@@ -26,7 +28,8 @@ class ParamTree(nn.Module):
     """Parameters as nested modules that read like the JAX package's
     parameter dicts: ``tree["attn"]["wq"]``. Mappings become
     :class:`ParamTree`\\ s, lists ``nn.ModuleList``\\ s of them, tensors
-    frozen ``nn.Parameter``\\ s (the port runs forward passes only)."""
+    frozen ``nn.Parameter``\\ s: a served model takes no gradient. The
+    training functions take :func:`plain_tree`'s dicts instead."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -48,6 +51,21 @@ class ParamTree(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def plain_tree(params):
+    """The tensors of a :class:`ParamTree` (or of nested mappings and
+    lists) as plain nested dicts and lists of detached tensors, storage
+    shared. Dict keys are sorted, as JAX flattens a dict, so
+    ``torch.utils._pytree`` flattens the tree in the JAX package's leaf
+    order. This is the form the train state holds."""
+    if isinstance(params, torch.Tensor):
+        return params.detach()
+    if isinstance(params, ParamTree):
+        params = {**params._parameters, **params._modules}
+    if isinstance(params, Mapping):
+        return {k: plain_tree(params[k]) for k in sorted(params)}
+    return [plain_tree(v) for v in params]
 
 
 def normal(gen: torch.Generator, shape, std: float, dtype, device
@@ -116,23 +134,39 @@ def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 # ----------------------------------------------------------------------------
-# MLP
+# MLPs
 # ----------------------------------------------------------------------------
+MLP_KINDS = ("swiglu", "geglu", "gelu", "relu2")
+
+
 def init_mlp(gen: torch.Generator, d: int, f: int, kind: str, dtype, device
              ) -> dict:
-    if kind != "swiglu":
-        raise NotImplementedError(f"the port's MLP is swiglu; {kind!r} "
-                                  "comes with its model family (ROADMAP A10)")
-    return {"w_gate": normal(gen, (d, f), 1.0 / math.sqrt(d), dtype, device),
-            "w_up": normal(gen, (d, f), 1.0 / math.sqrt(d), dtype, device),
-            "w_out": normal(gen, (f, d), 1.0 / math.sqrt(f), dtype, device)}
+    """``w_gate``, ``w_up`` [d,f] and ``w_out`` [f,d] for the gated kinds
+    (swiglu, geglu); ``w_up`` and ``w_out`` for gelu and relu2."""
+    if kind not in MLP_KINDS:
+        raise ValueError(f"unknown MLP {kind!r}; expected one of {MLP_KINDS}")
+    p = {}
+    if kind in ("swiglu", "geglu"):
+        p["w_gate"] = normal(gen, (d, f), 1.0 / math.sqrt(d), dtype, device)
+    p["w_up"] = normal(gen, (d, f), 1.0 / math.sqrt(d), dtype, device)
+    p["w_out"] = normal(gen, (f, d), 1.0 / math.sqrt(f), dtype, device)
+    return p
 
 
 def apply_mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "swiglu":
-        raise NotImplementedError(f"the port's MLP is swiglu; {kind!r} "
-                                  "comes with its model family (ROADMAP A10)")
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    """The MLP of ``kind``. gelu is the tanh approximation, which
+    ``jax.nn.gelu`` computes by default; relu2 is the squared ReLU
+    (Primer; Nemotron-4)."""
+    if kind == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif kind == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+    elif kind == "gelu":
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    elif kind == "relu2":
+        h = torch.square(F.relu(x @ p["w_up"]))
+    else:
+        raise ValueError(f"unknown MLP {kind!r}; expected one of {MLP_KINDS}")
     return h @ p["w_out"]
 
 

@@ -1,6 +1,6 @@
 """cfg-bound model facade — the port of the JAX package's
-``repro/models/model.py``: ``init``, ``forward`` (prefill), and the
-serving half, ``init_cache`` and ``decode_step``.
+``repro/models/model.py``: ``init``, ``loss`` (training), ``forward``
+(prefill), and the serving half, ``init_cache`` and ``decode_step``.
 
 A ``Model`` is bound to a device: the current CUDA device unless the
 caller names another (``LookupError`` without a card), like every entry
@@ -18,7 +18,7 @@ from . import transformer
 from .attention import ATTN_IMPLS
 from .layers import ParamTree
 
-__all__ = ["Model", "serve_input_specs"]
+__all__ = ["Model", "train_input_specs", "serve_input_specs"]
 
 
 class Model:
@@ -45,17 +45,29 @@ class Model:
         return transformer.init_params(gen, self.cfg, self.vocab,
                                        device=self.device)
 
+    def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: as_device_array(v, device=self.device)
+                for k, v in batch.items()}
+
+    # -- training ----------------------------------------------------------
+    def loss(self, params, batch: Dict[str, Any]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross entropy of ``batch`` (``tokens`` and
+        ``labels`` [B,S], host arrays or tensors) → ``(loss, {"ce",
+        "aux"})``, differentiable in ``params``: a :class:`ParamTree` or
+        :func:`~repro_torch.models.layers.plain_tree`'s dicts. Under grad
+        each layer runs under ``cfg.remat``."""
+        return transformer.loss_fn(params, self.cfg, self._batch(batch),
+                                   attn_impl=self.attn_impl)
+
     def forward(self, params: ParamTree, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``batch["tokens"]`` [B,S] (host array or tensor) → (logits
         [B,S,V], aux loss)."""
-        tokens = as_device_array(batch["tokens"], device=self.device)
-        positions = batch.get("positions")
-        if positions is not None:
-            positions = as_device_array(positions, device=self.device)
+        batch = self._batch(batch)
         with torch.no_grad():
-            return transformer.forward(params, self.cfg, tokens,
-                                       positions=positions,
+            return transformer.forward(params, self.cfg, batch["tokens"],
+                                       positions=batch.get("positions"),
                                        attn_impl=self.attn_impl)
 
     # -- serving ----------------------------------------------------------
@@ -74,6 +86,15 @@ class Model:
         new cache); ``cache`` is not written."""
         with torch.no_grad():
             return transformer.decode_step(params, self.cfg, tokens, cache)
+
+
+def train_input_specs(cfg: ModelConfig, batch: int, seq: int
+                      ) -> Dict[str, torch.Tensor]:
+    """A train batch's inputs as ``meta`` tensors: ``tokens`` and
+    ``labels`` [B,S] int32 (the dense family's; the others raise)."""
+    transformer.check_family(cfg)
+    return {k: torch.empty((batch, seq), dtype=torch.int32, device="meta")
+            for k in ("tokens", "labels")}
 
 
 def serve_input_specs(cfg: ModelConfig, batch: int

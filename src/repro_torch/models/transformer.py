@@ -1,6 +1,6 @@
 """Decoder-only LM assembly, dense family — the port of the JAX package's
-``repro/models/transformer.py`` for the forward pass (prefill) and the
-cache-carrying decode step.
+``repro/models/transformer.py``: the forward pass (prefill and training),
+the loss, and the cache-carrying decode step.
 
 The JAX package stacks each layer group's parameters along a leading
 ``count`` axis and runs the group as one ``jax.lax.scan``. PyTorch runs
@@ -13,22 +13,31 @@ Dh]`` per group, so caches convert between the packages leaf for leaf
 (``convert.cache_from_jax``). :func:`decode_step` is pure: it returns a
 new cache and never writes the one it was given.
 
-The moe, ssm, hybrid, encdec and vlm families and the loss come later
-(ROADMAP A10); their unit kinds raise ``NotImplementedError`` here.
+While grad is enabled, each layer runs under the remat policy of
+``cfg.remat`` (:func:`apply_remat`), as each scan body does in JAX.
+
+The moe, ssm, hybrid, encdec and vlm families come later (ROADMAP A10);
+their unit kinds raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
 from .layers import (ParamTree, apply_mlp, apply_norm, init_embedding,
                      init_mlp, init_norm)
 
-__all__ = ["check_family", "layer_groups", "init_params", "embed_inputs",
-           "forward", "init_cache", "decode_step"]
+__all__ = ["check_family", "REMAT_POLICIES", "apply_remat", "layer_groups",
+           "init_params", "embed_inputs", "forward", "loss_fn",
+           "cross_entropy", "init_cache", "decode_step"]
+
+REMAT_POLICIES = ("none", "full", "dots")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -36,6 +45,38 @@ def check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the dense decoder family; "
             f"{cfg.family!r} models are still to be ported (ROADMAP A10)")
+
+
+# the products whose outputs the "dots" policy keeps: ``x @ W`` folds its
+# batch axes into ``mm``, the attention einsums run as ``bmm``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def apply_remat(body: Callable, remat: str) -> Callable:
+    """Remat policy for one layer, as ``apply_remat`` gives the JAX scan
+    body:
+
+    * ``none`` — no remat: everything the backward needs is saved.
+    * ``full`` — recompute the layer in the backward
+      (``jax.checkpoint``).
+    * ``dots`` — save the matrix products' outputs and recompute the rest
+      (``dots_saveable``), by selective checkpointing.
+    """
+    if remat == "none":
+        return body
+    if remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat={remat!r}; the port has {REMAT_POLICIES}")
 
 
 def layer_groups(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -96,12 +137,37 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = embed_inputs(params, cfg, tokens)
+    block_fn = _apply_block
+    if torch.is_grad_enabled():
+        block_fn = apply_remat(_apply_block, cfg.remat)
     for block in params["layers"]:
-        x = _apply_block(block, cfg, x, positions, attn_impl)
+        x = block_fn(block, cfg, x, positions, attn_impl)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = x @ head.to(x.dtype)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            attn_impl: str = "ref"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross entropy (+ the aux loss, 0 for the dense
+    family): ``(loss, {"ce", "aux"})``, all f32 0-d tensors."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          positions=batch.get("positions"),
+                          attn_impl=attn_impl)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean of ``logsumexp`` minus the label logit, in f32. A gather picks
+    the label logit, the value JAX's one-hot select sums to."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    label_logit = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - label_logit).mean()
 
 
 # ----------------------------------------------------------------------------

@@ -36,9 +36,11 @@ def test_port_imports_no_jax_and_no_repro():
         import repro_torch.net.demo, repro_torch.serve.mesh
         import repro_torch.launch.node, repro_torch.launch.serve_mesh
         import repro_torch.dist.collectives
+        import repro_torch.optim, repro_torch.data, repro_torch.checkpoint
+        import repro_torch.dist.fault, repro_torch.launch.train
         bad = sorted(m for m in sys.modules
                      if m.startswith("jax") or m == "repro"
-                     or m.startswith("repro."))
+                     or m.startswith("repro.") or m.startswith("ml_dtypes"))
         print("BAD", bad)
         print("TRITON", "triton" in sys.modules)
     """)
@@ -86,6 +88,9 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
             ["--arch", "qwen3-1.7b", "--paged", "--requests", "1",
              "--steps", "1"])))
         print("page_pool", raises(lambda: PagePool([((1,), "float32")])))
+        from repro_torch.launch import train as launch_train
+        print("launch_train", raises(lambda: launch_train.main(
+            ["--arch", "qwen3-1.7b", "--steps", "1"])))
         from repro_torch.dist.collectives import quantize_ref
         from repro_torch.launch import serve_mesh
         from repro_torch.launch.node import run_worker
@@ -122,7 +127,7 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
     out = proc.stdout
     for name in ("find_device", "default_device", "spawn", "put", "convert",
                  "mandelbrot", "model", "launch_serve", "launch_paged",
-                 "page_pool", "node", "run_worker", "net_demo",
+                 "page_pool", "launch_train", "node", "run_worker", "net_demo",
                  "serve_mesh", "toy_engine", "model_engine", "quantize",
                  "decode"):
         assert f"{name} True" in out, out

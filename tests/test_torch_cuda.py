@@ -810,3 +810,85 @@ def test_run_worker_binds_the_card(cuda_device):
             child.kill()
         child.join(timeout=30)
     assert not child.is_alive()
+
+
+# -- training ----------------------------------------------------------------------
+def _train_inputs(dtype="float32", batch=4, seq=32):
+    import dataclasses
+
+    from repro_torch.data import SyntheticLM
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              param_dtype=dtype, compute_dtype=dtype)
+    return cfg, SyntheticLM(cfg, batch=batch, seq=seq, seed=3).batch_at(0)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    import torch.utils._pytree as pytree
+
+    from repro_torch.dist.step import (build_train_step, init_train_state,
+                                       loss_and_grads)
+    from repro_torch.optim import AdamWConfig
+    cfg, batch = _train_inputs()
+    lr = 1e-3
+    ocfg = AdamWConfig(lr=lr)
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
+    state = init_train_state(card, 0, ocfg)
+    state_cpu = pytree.tree_map(lambda t: t.cpu(), state)
+    g_card = loss_and_grads(card, state["params"], batch)
+    g_cpu = loss_and_grads(cpu, state_cpu["params"], batch)
+    np.testing.assert_allclose(float(g_card[0]), float(g_cpu[0]), rtol=1e-5)
+    for a, b in zip(pytree.tree_leaves(g_card[2]), pytree.tree_leaves(g_cpu[2])):
+        assert a.device == cuda_device
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-3,
+                                   atol=1e-5)
+    new, m = build_train_step(card, ocfg, grad_accum=2)(state, batch)
+    new_cpu, m_cpu = build_train_step(cpu, ocfg, grad_accum=2)(state_cpu, batch)
+    np.testing.assert_allclose(float(m["loss"]), float(m_cpu["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(m_cpu["grad_norm"]), rtol=1e-4)
+    for a, b in zip(pytree.tree_leaves(new), pytree.tree_leaves(new_cpu)):
+        assert a.device == cuda_device and a.dtype == b.dtype
+        np.testing.assert_allclose(a.cpu().double().numpy(),
+                                   b.double().numpy(), rtol=0,
+                                   atol=2.1 * lr)
+
+
+def test_kernel_attention_raises_under_grad_on_the_card(cuda_device):
+    from repro_torch.dist.step import loss_and_grads
+    from repro_torch.models.layers import plain_tree
+    for dtype in ("float32", "bfloat16"):
+        cfg, batch = _train_inputs(dtype)
+        model = Model(cfg, attn_impl="kernel", device=cuda_device)
+        params = model.init(0)
+        before = _launches()
+        with pytest.raises(NotImplementedError, match="ROADMAP B6"):
+            loss_and_grads(model, plain_tree(params), batch)
+        assert _launches() == before
+        model.forward(params, batch)                    # serving launches it
+        assert (_launches()["flash_attention"] ==
+                before["flash_attention"] + cfg.n_layers)
+
+
+def test_bf16_train_state_survives_a_checkpoint_on_the_card(cuda_device,
+                                                           tmp_path):
+    import torch.utils._pytree as pytree
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.dist.step import build_train_step, init_train_state
+    from repro_torch.optim import AdamWConfig
+    cfg, batch = _train_inputs("bfloat16")
+    model = Model(cfg, device=cuda_device)
+    ocfg = AdamWConfig()
+    state, _ = build_train_step(model, ocfg)(
+        init_train_state(model, 0, ocfg), batch)
+    ckpt.save(str(tmp_path), 1, state)
+    restored, manifest = ckpt.restore(str(tmp_path), target=state)
+    assert manifest["step"] == 1
+    dtypes = set()
+    for a, b in zip(pytree.tree_leaves(restored), pytree.tree_leaves(state)):
+        assert a.device == b.device == cuda_device and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.uint8) if a.dim() else a,
+                           b.view(torch.uint8) if b.dim() else b)
+        dtypes.add(a.dtype)
+    assert dtypes == {torch.bfloat16, torch.float32, torch.int32}

@@ -29,7 +29,8 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import pallas_flash_attention
 from repro.models import Model as JModel
 from repro.models import layers as jlayers
-from repro_torch.configs import ModelConfig, get_config, get_smoke_config
+from repro_torch.configs import (ARCHS, ModelConfig, get_config,
+                                 get_smoke_config)
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import KERNELS, ops
 from repro_torch.kernels.flash_attention import flash_attention
@@ -146,11 +147,13 @@ def test_flash_attention_rejects_bad_inputs():
 # configs and layers
 # ----------------------------------------------------------------------------
 def test_configs_are_copies_of_the_jax_configs():
-    for ours, theirs in ((get_config(ARCH), jget_config(ARCH)),
-                         (get_smoke_config(ARCH), jget_smoke(ARCH))):
-        assert isinstance(ours, ModelConfig)
-        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
-        assert ours.param_count() == theirs.param_count()
+    assert ARCHS == (ARCH, "llama3-8b", "qwen1.5-32b", "nemotron-4-340b")
+    for arch in ARCHS:
+        for ours, theirs in ((get_config(arch), jget_config(arch)),
+                             (get_smoke_config(arch), jget_smoke(arch))):
+            assert isinstance(ours, ModelConfig)
+            assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+            assert ours.param_count() == theirs.param_count()
     assert get_config(ARCH).dtype() == torch.bfloat16
     assert get_smoke_config(ARCH).dtype() == torch.float32
     with pytest.raises(KeyError, match="the port runs"):

@@ -24,6 +24,11 @@ weights, through each layer that the engine adds to a decode step:
 * ``serve engine``: ``run_engine`` (actor hop, ``ChunkScheduler``, worker
   threads); then the paged engine at qwen3-1.7b's widths.
 
+Then one full-width qwen3-1.7b train step (``chip_smoke.TRAIN_B`` x
+``chip_smoke.TRAIN_S`` tokens, bf16 parameters, f32 AdamW state, remat
+"full"), and its two halves alone: ``loss_and_grads`` (forward, the
+recompute and the backward) and ``adamw.update``.
+
 Serve rows also give the wall a step (``ms_a_step``). The last line is
 one JSON object with the same numbers. Needs a CUDA card; exits with
 code 2 without one.
@@ -228,6 +233,28 @@ def main() -> int:
         run["pool"].evict_prefixes()
     rows.append(_phase(f"serve paged qwen3-1.7b widths {n}x{steps} batch {n}",
                        paged, steps=steps))
+    torch.cuda.empty_cache()
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist.step import (build_train_step, init_train_state,
+                                       loss_and_grads)
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw
+    model = Model(cfg, device=dev)
+    ocfg = AdamWConfig()
+    state = init_train_state(model, 0, ocfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        cfg, batch=smoke.TRAIN_B, seq=smoke.TRAIN_S, seed=1).batch_at(0).items()}
+    train_step = build_train_step(model, ocfg)
+    shape = f"{smoke.TRAIN_B}x{smoke.TRAIN_S}"
+    rows.append(_phase(f"train step qwen3-1.7b bf16 {shape}",
+                       lambda: train_step(state, batch), host=True))
+    rows.append(_phase(f"train loss_and_grads qwen3-1.7b bf16 {shape}",
+                       lambda: loss_and_grads(model, state["params"], batch)))
+    _, _, grads = loss_and_grads(model, state["params"], batch)
+    rows.append(_phase("train adamw.update qwen3-1.7b",
+                       lambda: adamw.update(grads, state["opt"],
+                                            state["params"], ocfg)))
     print(json.dumps({"card": card, "phases": rows}), flush=True)
     return 0
 
