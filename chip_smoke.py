@@ -77,6 +77,24 @@ port's main path through the entry points a user calls:
   of batch 1 in this process, the rate after the failure window at least
   0.8 of the rate before it.
 
+* the five other model families at their published widths, random bf16
+  weights from seed 0, each model freed before the next: phi-3.5-moe
+  (moe, 16 of its 32 layers: all 32 take 83.7 GB), 1 x 2048 tokens;
+  mamba2-130m (ssm), 4 x 2048 in bf16, 1 x 512 in f32 on the card against
+  the CPU, 256 f32 decode steps against that prefill and 12 steps of
+  ``launch.train.run --full`` at 8 x 2048; recurrentgemma-9b (hybrid),
+  1 x 4096, past its 2048-token window; whisper-tiny (encdec), 8 x 1500
+  frames and 448 decoder tokens, then ``launch.serve --arch whisper-tiny
+  --full`` through the sync loop, 64 steps; qwen2-vl-2b (vlm), 2 x 2048
+  with 256 vision embeddings at M-RoPE positions whose three streams
+  differ. Each bf16 prefill goes through B6 (none for mamba2) and is held
+  against the plain attention under the qwen3 prefill's gates, with its
+  wall, profiled device time and idle share; 64 decode steps from an empty
+  cache are held to the prefill's logits under the same gates. B6 is also
+  checked and timed at head dim 256 (recurrentgemma-9b's layer launch,
+  window 2048, bf16 and f32) against SDPA with the window as a mask, and
+  at the families' other launch shapes.
+
 Every B1, B3 and B6 kernel's registers and spill bytes are printed (none
 may spill), and ``cuobjdump -sass`` of the B1 and B6 libraries shows which
 kernels run on the tensor cores (``HGMMA``, fed by ``UTMALDG``) and which
@@ -91,8 +109,8 @@ Each main-path phase sets every kernel's launch counts to 0 before it and
 reads them after it; a kernel of the phase that was not launched fails
 the run, and so does a ``build_wah_index`` that is not one
 ``radix_histogram`` and four ``radix_onesweep`` launches. Any failure
-exits non-zero. The serve, mesh and train phases each print a JSON line
-of their readings; the last two lines are a JSON object with one entry
+exits non-zero. The serve, mesh, train and family phases each print a
+JSON line of their readings; the last two lines are a JSON object with one entry
 per kernel and the JSON result line.
 
 Without a CUDA device it exits with code 2 and prints no result.
@@ -279,6 +297,60 @@ MESH_MARGIN = 2 * PREFILL_BF16_TOL
 #: leaves), so the window after it holds about half the requests
 MESH_WORKERS, MESH_KILL_STEPS, MESH_KILL_LOAD = 2, 8, 1.0
 MESH_KILL_REQUESTS, MESH_KILL_RECOVER = 16, 3
+#: the family phases, one published config each at its published widths,
+#: random bf16 weights from seed 0, each freed before the next: phase ->
+#: (arch, prefill batch, prefill tokens, B6 launches a forward). phi-3.5-moe
+#: keeps FAMILY_MOE_LAYERS of its 32 layers: all 32 are 41.9 B parameters,
+#: 83.7 GB in bf16, more than the card's 80 GB; 16 are about 42 GB.
+#: recurrentgemma-9b's 4096 tokens make its 2048-token window bite;
+#: whisper-tiny's batch is 8 x 1500 frames and its 448 decoder tokens
+#: (B6: 4 encoder, 4 decoder self, 4 cross launches); qwen2-vl-2b's first
+#: n_vision_tokens (256) inputs are vision embeddings at M-RoPE positions
+#: whose three streams differ (time 0, the row and the column of a 16 x 16
+#: grid), the text after them at 16, 17, ...
+FAMILY_PHASES = {
+    "moe": ("phi3.5-moe-42b-a6.6b", 1, 2048, 16),
+    "ssm": ("mamba2-130m", 4, 2048, 0),
+    "hybrid": ("recurrentgemma-9b", 1, 4096, 12),
+    "encdec": ("whisper-tiny", 8, 448, 12),
+    "vlm": ("qwen2-vl-2b", 2, 2048, 28),
+}
+FAMILY_MOE_LAYERS = 16
+#: the MoE's unpinned check: kernel against plain attention in f32 at
+#: FAMILY_MOE_F32_LAYERS layers (21 GB), where no token may pick another
+#: expert and the logits must agree within PREFILL_F32_TOL of max |logit|
+FAMILY_MOE_F32_LAYERS = 4
+#: decode steps from an empty cache, teacher-forced with the prefill's own
+#: inputs and held to its logits under the bf16 prefill gates
+FAMILY_DECODE_STEPS = 64
+#: mamba2-130m in f32: 1 x SSM_F32_S on the card against the CPU within
+#: PREFILL_F32_TOL of max |logit|; SSM_DECODE_STEPS f32 decode steps
+#: against that prefill, to the same limit; SSM_TRAIN_STEPS steps of
+#: launch.train.run --full at SSM_TRAIN_B x SSM_TRAIN_S, the first loss
+#: within TRAIN_FIRST_LOSS_TOL of ln(vocab)
+SSM_F32_S, SSM_DECODE_STEPS = 512, 256
+#: recurrentgemma-9b is chaotic in bf16 with random weights: its plain
+#: prefill of one batch row against the same row in a batch of 2 (cuBLAS
+#: tiles the products otherwise) differs by 0.056 of max |logit| at worst,
+#: RMS 0.036, top-1 0.919 on the H100, at the prefill gates before any
+#: kernel; a decode step's GEMVs and f32 softmax round otherwise again. So
+#: its bf16 decode is a reading, and decode is held in f32 over all 38
+#: layers (37.6 GB) to a 1 x HYBRID_F32_S prefill through B6's f32 kernel
+#: at D = 256, within PREFILL_F32_TOL
+HYBRID_F32_S = 512
+SSM_TRAIN_STEPS, SSM_TRAIN_B, SSM_TRAIN_S = 12, 8, 2048
+#: B6 at head dim 256: recurrentgemma-9b's layer launch, 1 x 16 (1 KV)
+#: heads x 4096^2 x 256, causal, window 2048 (bf16; f32 on 64-row tiles)
+FA_D256 = (1, 16, 1, 4096, 4096, 256)
+FA_D256_WINDOW = 2048
+#: the families' other B6 launches: (tag, shape, causal)
+FA_FAMILY_SHAPES = (
+    ("phi-3.5-moe prefill", (1, 32, 8, 2048, 2048, 128), True),
+    ("qwen2-vl-2b prefill", (2, 12, 2, 2048, 2048, 128), True),
+    ("whisper-tiny encoder", (8, 6, 6, 1500, 1500, 64), False),
+    ("whisper-tiny decoder self", (8, 6, 6, 448, 448, 64), True),
+    ("whisper-tiny cross", (8, 6, 6, 448, 1500, 64), False),
+)
 
 
 def log(msg: str) -> None:
@@ -460,6 +532,42 @@ def prefill_model(rng, dev):
     return cfg, model, model.init(0), tokens
 
 
+def attention_pairs(sq: int, skv: int, causal: bool,
+                    window=None) -> int:
+    """The (query, key) pairs that the masks leave, with right-aligned
+    query positions: what attention's work counts."""
+    pos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_bound_ms(q, k, v, causal: bool, window=None) -> float:
+    """Attention's least time: 4·D operations a (query, key) pair the
+    masks leave, for every batch and head, at the peak of q's dtype
+    (bf16: the tensor cores; f32: the SIMT FMA pipes), against each input
+    read and the output written once."""
+    b, h, sq, d = q.shape
+    peak = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    ops = 4.0 * b * h * d * attention_pairs(sq, k.shape[2], causal, window)
+    return max(bytes_ms(q.element_size() * (2 * q.numel() + k.numel() +
+                                            v.numel())),
+               ops_ms(ops, peak))
+
+
+def window_mask(sq: int, skv: int, causal: bool, window, dev):
+    """[Sq, Skv] bool, true where a query may see a key (SDPA's
+    ``attn_mask``)."""
+    qpos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=dev)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+    return keep
+
+
 def prefill_gates(name: str, logits: torch.Tensor, plain: torch.Tensor
                   ) -> dict:
     """A bf16 prefill's logits with the flash-attention kernel against the
@@ -618,10 +726,21 @@ def decode_prefill_phase(run_phase, model, params, tokens) -> dict:
         return torch.stack(out), cache
 
     got, cache = run_phase(name, [], body)
-    want = model.forward(params, {"tokens": tokens})[0][0].float()
-    got = got.float()
-    check(int(cache["len"]) == DECODE_S and bool(torch.isfinite(got).all()),
-          f"{name}: cache length or logits wrong")
+    want = model.forward(params, {"tokens": tokens})[0][0]
+    check(int(cache["len"]) == DECODE_S, f"{name}: cache length wrong")
+    return step_gates(name, got, want)
+
+
+def step_gates(name: str, got: torch.Tensor, want: torch.Tensor,
+               tol: float = PREFILL_BF16_TOL, gate: bool = True) -> dict:
+    """Decode steps' logits ``got`` against a prefill's at the same
+    positions ``want`` (``[..., V]``): finite, every position's max_abs_err
+    within ``tol`` of its max |logit|, relative RMS within
+    PREFILL_BF16_RMS_TOL, top-1 agreement at least PREFILL_TOP1. With
+    ``gate=False`` the readings are only logged and returned."""
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{name}: logits not finite or of the wrong shape")
     err = (got - want).abs().amax(-1)
     scale = want.abs().amax(-1)
     ratio = float((err / scale).max())
@@ -629,11 +748,13 @@ def decode_prefill_phase(run_phase, model, params, tokens) -> dict:
                 want.square().mean().sqrt())
     top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
     log(f"{name}: worst step max_abs_err / max |logit| {ratio} (limit "
-        f"{PREFILL_BF16_TOL}), relative RMS {rms} (limit "
-        f"{PREFILL_BF16_RMS_TOL}), top-1 agreement {top1} (limit "
-        f"{PREFILL_TOP1})")
-    check(ratio <= PREFILL_BF16_TOL, f"{name}: a step's logits differ by "
-          f"{ratio} of max |logit| > {PREFILL_BF16_TOL}")
+        f"{tol}), relative RMS {rms} (limit {PREFILL_BF16_RMS_TOL}), top-1 "
+        f"agreement {top1} (limit {PREFILL_TOP1})"
+        + ("" if gate else "; a reading, not a gate"))
+    if not gate:
+        return dict(max_err_ratio=ratio, rms_rel=rms, top1=top1)
+    check(ratio <= tol, f"{name}: a step's logits differ by {ratio} of max "
+          f"|logit| > {tol}")
     check(rms <= PREFILL_BF16_RMS_TOL, f"{name}: relative RMS {rms}")
     check(top1 >= PREFILL_TOP1, f"{name}: top-1 agreement {top1}")
     return dict(max_err_ratio=ratio, rms_rel=rms, top1=top1)
@@ -1341,6 +1462,414 @@ def llama_prefill_phase(run_phase, dev) -> dict:
     return out
 
 
+# -- the family phases -----------------------------------------------------------
+def family_config(phase: str):
+    """The published config of a family phase, phi-3.5-moe cut to
+    FAMILY_MOE_LAYERS layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(FAMILY_PHASES[phase][0])
+    if phase == "moe":
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_MOE_LAYERS)
+    return cfg
+
+
+def family_batch(cfg, b: int, s: int, dev, seed: int = 20) -> dict:
+    """A prefill's inputs: tokens [B,S] from numpy ``seed``, and the
+    family's extras: frames [B,1500,D] (encdec); vision embeddings for the
+    first n_vision_tokens and [3,B,S] M-RoPE positions whose streams differ
+    over them (vlm)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s))).to(dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encdec.n_frames, cfg.d_model), np.float32)).to(dev)
+    if cfg.family == "vlm":
+        n = cfg.n_vision_tokens
+        side = int(round(n ** 0.5))
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, n, cfg.d_model), np.float32)).to(dev)
+        pos = np.empty((3, s), np.int64)
+        grid = np.arange(n)
+        pos[:, :n] = (np.zeros(n), grid // side, grid % side)
+        pos[:, n:] = side + np.arange(s - n)
+        batch["positions"] = torch.from_numpy(
+            np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, b, s)))
+        ).to(dev)
+    return batch
+
+
+def family_prefill(run_phase, phase: str, dev):
+    """A family's bf16 prefill through ``attn_impl="kernel"``: B6 launched
+    the phase's count a forward, held against ``attn_impl="ref"`` under the
+    prefill gates; its wall and profiled device time. → (cfg, model,
+    params, batch, the plain logits, readings)."""
+    from repro_torch.models import Model
+    arch, b, s, fa = FAMILY_PHASES[phase]
+    cfg = family_config(phase)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, attn_impl="kernel", device=dev)
+    params = model.init(0)
+    batch = family_batch(cfg, b, s, dev)
+    name = f"{phase} {arch} ({cfg.n_layers} layers) prefill {b}x{s} bf16"
+    model.forward(params, batch)                       # warm up
+    t0 = time.perf_counter()
+    logits, aux = run_phase(name, ["flash_attention"] if fa else [],
+                            lambda: model.forward(params, batch),
+                            {"flash_attention_bf16": fa})
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = profiled_busy_ms(lambda: model.forward(params, batch))
+    plain, plain_aux = Model(cfg, attn_impl="ref", device=dev).forward(
+        params, batch)
+    check(logits.shape == (b, s, cfg.vocab_size),
+          f"{name}: logits of shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(aux)) and bool(torch.isfinite(plain_aux)),
+          f"{name}: aux loss not finite")
+    out = prefill_gates(name, logits, plain)
+    out.update(arch=arch, layers=cfg.n_layers, batch=b, tokens=s,
+               flash_attention_launches=fa, wall_ms=wall,
+               device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / wall),
+               aux=float(aux), weight_gb=param_bytes(params) / 1e9,
+               params=sum(p.numel() for p in params.parameters()),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{name}: {out['params']} parameters ({out['weight_gb']:.2f} GB), "
+        f"forward wall {wall:.3f} ms, device busy {busy:.3f} ms (profiled), "
+        f"idle share {out['idle_share']:.4f}, aux loss {out['aux']}, peak "
+        f"{out['peak_gb']:.2f} GB")
+    return cfg, model, params, batch, plain, out
+
+
+def family_decode(run_phase, phase: str, cfg, model, params, batch, want,
+                  steps=None, tol: float = PREFILL_BF16_TOL,
+                  gate: bool = True) -> dict:
+    """``steps`` (FAMILY_DECODE_STEPS) decode steps from an empty cache,
+    teacher-forced with the prefill's inputs (for vlm its vision embeddings
+    and [3,B,1] positions, through ``transformer.decode_step``), held to
+    the prefill's logits ``want`` at those positions. The MoE prefill's
+    expert queues take tokens in order, so the first positions are never
+    dropped and decode routes them as the prefill did."""
+    from repro_torch.models import transformer
+    steps = steps or FAMILY_DECODE_STEPS
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    name = (f"{phase} {FAMILY_PHASES[phase][0]} decode {b}x{steps} "
+            f"{cfg.compute_dtype} against the prefill")
+
+    def body():
+        if cfg.family == "encdec":
+            cache = model.init_cache(b, steps, params=params,
+                                     frames=batch["frames"])
+        else:
+            cache = model.init_cache(b, steps)
+        out = []
+        for t in range(steps):
+            tok = tokens[:, t:t + 1]
+            if cfg.family == "vlm":
+                with torch.no_grad():
+                    logits, cache = transformer.decode_step(
+                        params, cfg, tok, cache,
+                        positions=batch["positions"][:, :, t:t + 1],
+                        vision_embeds=batch["vision_embeds"][:, t:t + 1])
+            else:
+                logits, cache = model.decode_step(params, tok, cache)
+            out.append(logits[:, 0])
+        return torch.stack(out, dim=1), cache
+
+    t0 = time.perf_counter()
+    # an encdec cache is the encoder's prefill: B6 once an encoder layer
+    enc = cfg.encdec.n_enc_layers if cfg.family == "encdec" else 0
+    got, cache = run_phase(name, ["flash_attention"] if enc else [], body,
+                           {"flash_attention_bf16": enc})
+    wall = (time.perf_counter() - t0) * 1e3
+    check(int(cache["len"]) == steps, f"{name}: cache length wrong")
+    out = step_gates(name, got, want[:, :steps], tol, gate)
+    out.update(steps=steps, step_wall_ms=wall / steps)
+    log(f"{name}: {wall / steps:.3f} ms of wall a step")
+    return out
+
+
+class PinnedRouting:
+    """Records the expert choices of each MoE layer in one forward
+    (``record``), then makes later forwards and decode steps route their
+    tokens to those experts (``replay``): a token keeps the recorded
+    top-k experts, weighted by its own router probabilities there. Routing
+    is discontinuous: in bf16 a token whose second and third experts lie
+    within a rounding of each other picks either, and the plain attention
+    (P rounded to bf16 before P·V, as in the JAX package) and the kernel
+    (P in two bf16 halves) round differently. With the choices pinned, the
+    two paths compute the same function of continuous numbers, which the
+    prefill gates can hold. Patches ``models.moe.route``, which
+    ``apply_moe`` calls once a layer."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_mod
+        self._mod, self._route = moe_mod, moe_mod.route
+        self.choices, self._calls, self._mode = [], 0, None
+
+    def _patched(self, p, cfg, x):
+        probs, topv, topi = self._route(p, cfg, x)
+        if self._mode == "record":
+            self.choices.append(topi)
+            return probs, topv, topi
+        layer = self._calls % len(self.choices)
+        rec = self.choices[layer]
+        if x.shape[1] == 1:          # a decode step: its position's choice
+            pos = self._calls // len(self.choices)
+            rec = rec.reshape(-1, rec.shape[-1])[pos][None, None]
+        self._calls += 1
+        topi = rec.expand(x.shape[0], *rec.shape[1:])
+        topv = probs.gather(-1, topi)
+        return probs, topv / topv.sum(-1, keepdim=True), topi
+
+    def record(self):
+        self.choices, self._mode = [], "record"
+        self._mod.route = self._patched
+        return self
+
+    def replay(self):
+        self._calls, self._mode = 0, "replay"
+        self._mod.route = self._patched
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._route
+
+
+def routing_flips(a: list, b: list) -> list:
+    """Tokens a layer whose top-k experts differ between two records."""
+    return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+            for x, y in zip(a, b)]
+
+
+def moe_phase(run_phase, dev) -> dict:
+    """phi-3.5-moe at FAMILY_MOE_LAYERS layers: the bf16 prefill through B6
+    with its expert choices recorded; the plain attention's prefill, once
+    routed on its own (the tokens that pick another expert are counted and
+    the unpinned readings logged) and once routed to the kernel pass's
+    experts, held to the prefill gates; decode steps routed to the same
+    experts against it. Then, unpinned, kernel against plain attention in
+    f32 at FAMILY_MOE_F32_LAYERS layers: the same experts and logits within
+    PREFILL_F32_TOL."""
+    import dataclasses
+    from repro_torch.models import Model
+    arch, b, s, fa = FAMILY_PHASES["moe"]
+    cfg = family_config("moe")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, attn_impl="kernel", device=dev)
+    params = model.init(0)
+    batch = family_batch(cfg, b, s, dev)
+    name = f"moe {arch} ({cfg.n_layers} layers) prefill {b}x{s} bf16"
+    plain_model = Model(cfg, attn_impl="ref", device=dev)
+    model.forward(params, batch)                       # warm up
+    with PinnedRouting() as pins:
+        pins.record()
+        t0 = time.perf_counter()
+        logits, aux = run_phase(name, ["flash_attention"],
+                                lambda: model.forward(params, batch),
+                                {"flash_attention_bf16": fa})
+        wall = (time.perf_counter() - t0) * 1e3
+        kernel_choices = pins.choices
+        pins.record()
+        unpinned, _ = plain_model.forward(params, batch)
+        flips = routing_flips(kernel_choices, pins.choices)
+        pins.choices = kernel_choices
+        unpinned_top1 = float((logits.argmax(-1) == unpinned.argmax(-1))
+                              .float().mean())
+        del unpinned
+        log(f"{name}: unpinned, the plain attention's prefill routes "
+            f"{flips} tokens a layer to other experts than the kernel's "
+            f"(of {s}); top-1 agreement {unpinned_top1}")
+        pins.replay()
+        plain, plain_aux = plain_model.forward(params, batch)
+        busy = profiled_busy_ms(lambda: model.forward(params, batch))
+        check(bool(torch.isfinite(aux)) and bool(torch.isfinite(plain_aux)),
+              f"{name}: aux loss not finite")
+        out = prefill_gates(f"{name}, experts pinned", logits, plain)
+        out.update(arch=arch, layers=cfg.n_layers, batch=b, tokens=s,
+                   flash_attention_launches=fa, wall_ms=wall,
+                   device_busy_ms=busy,
+                   idle_share=max(0.0, 1.0 - busy / wall), aux=float(aux),
+                   weight_gb=param_bytes(params) / 1e9,
+                   params=sum(p.numel() for p in params.parameters()),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   unpinned_flips=flips, unpinned_top1=unpinned_top1)
+        log(f"{name}: {out['params']} parameters ({out['weight_gb']:.2f} "
+            f"GB), forward wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"(profiled), idle share {out['idle_share']:.4f}, aux loss "
+            f"{out['aux']}, peak {out['peak_gb']:.2f} GB")
+        pins.replay()
+        out["decode"] = family_decode(run_phase, "moe", cfg, model, params,
+                                      batch, plain)
+    del model, params, plain, plain_model, logits
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=FAMILY_MOE_F32_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = Model(cfg32, device=dev).init(0)
+    name = f"moe {arch} ({FAMILY_MOE_F32_LAYERS} layers) prefill {b}x{s} f32"
+    with PinnedRouting() as pins:
+        pins.record()
+        got = run_phase(name, ["flash_attention"], lambda: Model(
+            cfg32, attn_impl="kernel", device=dev).forward(params32, batch)[0],
+            {"flash_attention_f32": FAMILY_MOE_F32_LAYERS})
+        kernel_choices = pins.choices
+        pins.record()
+        want = Model(cfg32, attn_impl="ref", device=dev).forward(
+            params32, batch)[0]
+        flips = routing_flips(kernel_choices, pins.choices)
+    err, scale = max_abs_err(got, want), float(want.abs().max())
+    log(f"{name}: kernel against plain attention, unpinned: {flips} tokens a "
+        f"layer on other experts; logits max_abs_err {err} (max |logit| "
+        f"{scale}, limit {PREFILL_F32_TOL} x max)")
+    check(sum(flips) == 0, f"{name}: tokens routed apart in f32: {flips}")
+    check(err <= PREFILL_F32_TOL * scale, f"{name}: kernel and plain "
+          f"attention disagree beyond {PREFILL_F32_TOL} x max |logit|")
+    out["f32_unpinned"] = dict(layers=FAMILY_MOE_F32_LAYERS, flips=flips,
+                               max_abs_err=err, max_logit=scale)
+    return out
+
+
+def hybrid_phase(run_phase, dev) -> dict:
+    """recurrentgemma-9b: the bf16 prefill under the gates; the model's own
+    bf16 noise (its plain prefill of the same tokens as row 0 of a batch of
+    2, where cuBLAS tiles the products otherwise) and the bf16 decode
+    against the prefill, both logged as readings; then the same 38 layers
+    in f32, 1 x HYBRID_F32_S through B6's f32 kernel at D = 256, and decode
+    held to that prefill within PREFILL_F32_TOL."""
+    import dataclasses
+    from repro_torch.models import Model
+    cfg, model, params, batch, plain, out = family_prefill(run_phase,
+                                                           "hybrid", dev)
+    out["window"] = cfg.hybrid.window
+    two = {"tokens": batch["tokens"].expand(2, -1).contiguous()}
+    floor = Model(cfg, attn_impl="ref", device=dev).forward(params, two)[0]
+    out["bf16_noise_floor"] = step_gates(
+        "hybrid recurrentgemma-9b plain prefill, row 0 of a batch of 2 "
+        "against batch 1 (the model's own bf16 noise)", floor[:1], plain,
+        gate=False)
+    del floor
+    out["decode_bf16"] = family_decode(run_phase, "hybrid", cfg, model,
+                                       params, batch, plain, gate=False)
+    del model, params, plain
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Model(cfg32, attn_impl="kernel", device=dev)
+    params32 = model32.init(0)
+    tokens = {"tokens": batch["tokens"][:, :HYBRID_F32_S]}
+    name = f"hybrid recurrentgemma-9b prefill 1x{HYBRID_F32_S} f32"
+    got = run_phase(name, ["flash_attention"],
+                    lambda: model32.forward(params32, tokens)[0],
+                    {"flash_attention_f32": FAMILY_PHASES["hybrid"][3]})
+    want = Model(cfg32, attn_impl="ref", device=dev).forward(params32,
+                                                             tokens)[0]
+    err, scale = max_abs_err(got, want), float(want.abs().max())
+    log(f"{name}: kernel against plain attention, logits max_abs_err {err} "
+        f"(max |logit| {scale}, limit {PREFILL_F32_TOL} x max)")
+    check(err <= PREFILL_F32_TOL * scale, f"{name}: kernel and plain "
+          f"attention disagree beyond {PREFILL_F32_TOL} x max |logit|")
+    out["f32_prefill"] = dict(tokens=HYBRID_F32_S, max_abs_err=err,
+                              max_logit=scale)
+    out["decode"] = family_decode(run_phase, "hybrid", cfg32, model32,
+                                  params32, tokens, got, tol=PREFILL_F32_TOL)
+    return out
+
+
+def vlm_phase(run_phase, dev) -> dict:
+    cfg, model, params, batch, plain, out = family_prefill(run_phase, "vlm",
+                                                           dev)
+    pos = batch["positions"][:, 0, :cfg.n_vision_tokens]
+    check(not torch.equal(pos[0], pos[1]) and not torch.equal(pos[1], pos[2]),
+          "vlm: the M-RoPE streams do not differ over the vision block")
+    out["decode"] = family_decode(run_phase, "vlm", cfg, model, params, batch,
+                                  plain)
+    return out
+
+
+def encdec_phase(run_phase, dev) -> dict:
+    from repro_torch.launch import serve as launch_serve
+    cfg, model, params, batch, plain, out = family_prefill(run_phase,
+                                                           "encdec", dev)
+    out["decode"] = family_decode(run_phase, "encdec", cfg, model, params,
+                                  batch, plain)
+    del model, params
+    name = f"encdec launch.serve --arch whisper-tiny --full --sync 8x64"
+    rc = run_phase(name, [], lambda: launch_serve.main(
+        ["--arch", "whisper-tiny", "--full", "--sync", "--batch", "8",
+         "--steps", str(FAMILY_DECODE_STEPS), "--device", str(dev)]),
+        {"flash_attention_bf16": 0})
+    check(rc == 0, f"{name}: exit code {rc}")
+    return out
+
+
+def ssm_phase(run_phase, dev) -> dict:
+    """mamba2-130m: the bf16 prefill (no attention, so no B6 launch); an f32
+    1 x SSM_F32_S prefill on the card against the CPU; SSM_DECODE_STEPS f32
+    decode steps against that prefill; SSM_TRAIN_STEPS steps of
+    ``launch.train.run --full``."""
+    import dataclasses
+    import torch.utils._pytree as pytree
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.models.layers import ParamTree, plain_tree
+    cfg, model, params, batch, plain, out = family_prefill(run_phase, "ssm",
+                                                           dev)
+    del model, params, plain
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Model(cfg32, device=dev)
+    params32 = model32.init(0)
+    tokens = batch["tokens"][:1, :SSM_F32_S]
+    name = f"ssm mamba2-130m prefill 1x{SSM_F32_S} f32"
+    got = run_phase(name, [], lambda: model32.forward(
+        params32, {"tokens": tokens})[0], {"flash_attention_bf16": 0,
+                                           "flash_attention_f32": 0})
+    cpu = Model(cfg32, device="cpu")
+    cpu_params = ParamTree(pytree.tree_map(lambda t: t.cpu(),
+                                           plain_tree(params32)))
+    want = cpu.forward(cpu_params, {"tokens": tokens.cpu()})[0]
+    err = max_abs_err(got.cpu(), want)
+    scale = float(want.abs().max())
+    log(f"{name}: card against the CPU, logits max_abs_err {err} (max "
+        f"|logit| {scale}, limit {PREFILL_F32_TOL} x max)")
+    check(err <= PREFILL_F32_TOL * scale, f"{name}: the card and the CPU "
+          f"disagree beyond {PREFILL_F32_TOL} x max |logit|")
+    out["f32_card_vs_cpu"] = dict(max_abs_err=err, max_logit=scale)
+    out["f32_decode"] = family_decode(
+        run_phase, "ssm", cfg32, model32, params32, {"tokens": tokens},
+        got, steps=SSM_DECODE_STEPS, tol=PREFILL_F32_TOL)
+    del model32, params32, got
+    torch.cuda.empty_cache()
+    args = launch_train.parse_args(
+        ["--arch", "mamba2-130m", "--full", "--steps", str(SSM_TRAIN_STEPS),
+         "--batch", str(SSM_TRAIN_B), "--seq", str(SSM_TRAIN_S),
+         "--log-every", "4", "--device", str(dev)])
+    name = (f"ssm train mamba2-130m --full {SSM_TRAIN_STEPS} steps of "
+            f"{SSM_TRAIN_B}x{SSM_TRAIN_S}")
+    torch.cuda.reset_peak_memory_stats()
+    rows = run_phase(name, [], lambda: launch_train.run(args, log=log))
+    ln_v = float(np.log(cfg.vocab_size))
+    losses = [r["loss"] for r in rows]
+    check(len(rows) == SSM_TRAIN_STEPS and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
+        f"{name}: a loss or grad_norm is not finite")
+    check(abs(losses[0] - ln_v) <= TRAIN_FIRST_LOSS_TOL * ln_v,
+          f"{name}: first loss {losses[0]} is not within "
+          f"{TRAIN_FIRST_LOSS_TOL} of ln {cfg.vocab_size} = {ln_v}")
+    walls = sorted(r["wall_s"] * 1e3 for r in rows[1:])
+    out["train"] = dict(losses=losses, ln_vocab=ln_v,
+                        step_wall_ms_median=walls[len(walls) // 2],
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{name}: losses {[round(x, 4) for x in losses]} (ln V {ln_v}); "
+        f"step wall median {out['train']['step_wall_ms_median']:.3f} ms, "
+        f"peak {out['train']['peak_gb']:.2f} GB")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1358,9 +1887,9 @@ def main() -> int:
                                      MANDELBROT, MATMUL, RADIX_PASS,
                                      WAH_INTERLEAVE, build_all, ops, ref)
     from repro_torch.kernels.build import device_sm_count
-    from repro_torch.kernels.flash_attention import (F32_QUERY_TILES,
-                                                     HEAD_DIMS,
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                      f32_query_tile,
+                                                     f32_query_tiles,
                                                      flash_attention,
                                                      kernel_info)
     from repro_torch.kernels.mandelbrot import mandelbrot as mandelbrot_kernel
@@ -1392,7 +1921,7 @@ def main() -> int:
             f"bytes, {info['smem_bytes']} bytes of shared memory a block; "
             f"P.V: {info['pv']}")
         fa_info.append(info)
-        for tile in F32_QUERY_TILES:
+        for tile in f32_query_tiles(d):
             info = kernel_info(d, torch.float32, tile)
             log(f"flash_attention f32 kernel, head dim {d}, {tile}-row query "
                 f"tile: {info['registers']} registers a thread, "
@@ -1696,16 +2225,6 @@ def main() -> int:
             f"{float(want.abs().max())}")
         del got, want
 
-    def fa_bound_ms(q, k, v):
-        """Causal attention's least time: 4·B·H·Sq·Skv·D / 2 operations at
-        the peak of q's dtype (bf16: the tensor cores; f32: the SIMT FMA
-        pipes) against each input read and the output written once."""
-        b, h, s, d = q.shape
-        peak = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
-        return max(bytes_ms(q.element_size() * (2 * q.numel() + k.numel() +
-                                                v.numel())),
-                   ops_ms(4.0 * b * h * s * s * d / 2, peak))
-
     def sdpa(q, k, v):
         return torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)
@@ -1716,7 +2235,7 @@ def main() -> int:
         ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 10),
         plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True),
                          3),
-        bound_ms=fa_bound_ms(q, k, v), bound_by="operations",
+        bound_ms=attention_bound_ms(q, k, v, True), bound_by="operations",
         library_ms=cuda_ms(lambda: sdpa(q, k, v), 10),
         library="F.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True), bf16", instantiations=fa_info)
@@ -1767,7 +2286,7 @@ def main() -> int:
             ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20),
             plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v,
                                                          causal=True), 3),
-            bound_ms=fa_bound_ms(q, k, v),
+            bound_ms=attention_bound_ms(q, k, v, True),
             library_ms=cuda_ms(lambda: sdpa(q, k, v), 20),
             host_us=host_us(lambda: flash_attention(q, k, v, causal=True),
                             20),
@@ -1803,7 +2322,7 @@ def main() -> int:
             ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps),
             plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v,
                                                          causal=True), 3),
-            bound_ms=fa_bound_ms(q, k, v),
+            bound_ms=attention_bound_ms(q, k, v, True),
             library_ms=cuda_ms(lambda: sdpa(q, k, v), reps),
             library="F.scaled_dot_product_attention, f32 (TF32 off)",
             host_us=host_us(lambda: flash_attention(q, k, v, causal=True),
@@ -1819,6 +2338,88 @@ def main() -> int:
             f"{r['host_us']:.1f} us a call, SDPA {r['library_host_us']:.1f};"
             f" max_abs_err {r['max_abs_err']} (tol {FA_F32_TOL})")
         del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # B6 at head dim 256: recurrentgemma-9b's layer launch, window 2048, in
+    # bf16 (held to one bf16 step of the plain version) and in f32 (64-row
+    # tiles, 2e-4); SDPA gets the window as a boolean mask
+    fa_mask = window_mask(FA_D256[3], FA_D256[4], True, FA_D256_WINDOW, dev)
+    d256 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attention_inputs(
+            FA_D256, dtype, torch.Generator(device=dev).manual_seed(0), dev)
+        fa_call = (lambda: flash_attention(q, k, v, causal=True,
+                                           window=FA_D256_WINDOW))
+        before = FLASH_ATTENTION.launches
+        got = fa_call()
+        torch.cuda.synchronize()
+        check(FLASH_ATTENTION.launches == before + 1,
+              f"flash_attention {dtype} D=256: not one launch")
+        want = ref.flash_attention(q, k, v, causal=True,
+                                   window=FA_D256_WINDOW)
+        r = dict(shape=list(FA_D256), window=FA_D256_WINDOW,
+                 dtype=str(dtype),
+                 max_abs_err=max_abs_err(got.float(), want.float()))
+        if dtype == torch.bfloat16:
+            r["max_steps"] = float(bf16_steps(got, want).max())
+            check(r["max_steps"] <= FA_BF16_STEPS,
+                  f"flash_attention bf16 D=256: {r['max_steps']} bf16 steps "
+                  f"from the plain version > {FA_BF16_STEPS}")
+        else:
+            r["query_tile"] = f32_query_tile(1, FA_D256[1], FA_D256[3],
+                                             device_sm_count(dev.index), 256)
+            check(torch.allclose(got, want, rtol=FA_F32_TOL, atol=FA_F32_TOL),
+                  f"flash_attention f32 D=256 disagrees beyond {FA_F32_TOL}")
+        del got, want
+        r.update(
+            ms=cuda_ms(fa_call, 10),
+            plain_ms=cuda_ms(lambda: ref.flash_attention(
+                q, k, v, causal=True, window=FA_D256_WINDOW), 3),
+            bound_ms=attention_bound_ms(q, k, v, True, FA_D256_WINDOW),
+            bound_by="operations",
+            library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=fa_mask, enable_gqa=True), 10),
+            library="F.scaled_dot_product_attention(attn_mask=the window, "
+                    "enable_gqa=True)")
+        d256["bf16" if dtype == torch.bfloat16 else "f32"] = r
+        log(f"flash_attention {dtype} causal D=256 1x16(1)x4096^2 window "
+            f"{FA_D256_WINDOW}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of it "
+            f"reached); max_abs_err {r['max_abs_err']}"
+            + (f", {r['max_steps']} bf16 steps" if "max_steps" in r else
+               f" (tol {FA_F32_TOL}), {r['query_tile']}-row tiles"))
+        del q, k, v
+    rows["flash_attention"]["d256"] = d256
+    del fa_mask
+    # the families' other bf16 launch shapes
+    family_shapes = []
+    for tag, shape, causal in FA_FAMILY_SHAPES:
+        q, k, v = attention_inputs(
+            shape, torch.bfloat16, torch.Generator(device=dev).manual_seed(0),
+            dev)
+        got = flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        steps = float(bf16_steps(got, want).max())
+        check(steps <= FA_BF16_STEPS, f"flash_attention bf16 {tag} {shape}: "
+              f"{steps} bf16 steps from the plain version")
+        r = dict(tag=tag, shape=list(shape), causal=causal, max_steps=steps,
+                 max_abs_err=max_abs_err(got.float(), want.float()),
+                 ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                            20),
+                 plain_ms=cuda_ms(lambda: ref.flash_attention(
+                     q, k, v, causal=causal), 3),
+                 bound_ms=attention_bound_ms(q, k, v, causal),
+                 library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, k, v, is_causal=causal, enable_gqa=True), 20))
+        family_shapes.append(r)
+        b_, h_, hkv_, sq_, skv_, d_ = shape
+        log(f"flash_attention bf16 {tag} {b_}x{h_}({hkv_})x{sq_}x{skv_}x{d_}"
+            f"{' causal' if causal else ''}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms; {steps} bf16 steps at most")
+        del q, k, v, got, want
+    rows["flash_attention"]["family_shapes"] = family_shapes
     torch.cuda.empty_cache()
 
     # -- main path --------------------------------------------------------------
@@ -2032,6 +2633,18 @@ def main() -> int:
     mesh["processes"] = mesh_procs_phase(run_phase, dev)
     print(json.dumps({"mesh": mesh}, default=str), flush=True)
     print(json.dumps({"train": train}), flush=True)
+
+    # -- the families: moe, ssm, hybrid, encdec, vlm ------------------------------
+    families = {"card": card}
+    for phase, fn in (("moe", moe_phase), ("ssm", ssm_phase),
+                      ("hybrid", hybrid_phase), ("encdec", encdec_phase),
+                      ("vlm", vlm_phase)):
+        t0 = time.perf_counter()
+        families[phase] = fn(run_phase, dev)
+        families[phase]["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        log(f"family phase {phase}: {families[phase]['phase_s']:.1f} s")
+    print(json.dumps({"families": families}), flush=True)
 
     entries = []
     for kname, row in rows.items():

@@ -28,9 +28,10 @@
 //     are launched last-first, so under the causal mask the longest run
 //     first and do not form a tail;
 //   * warpgroup 2 is the producer: one thread loads the Q tile once and
-//     then K and V tiles of 128 keys by TMA (rank-4 tensor maps over the
-//     tensors' own strides, 128-byte swizzle, 32-byte where a row of D is
-//     narrower; rows past Skv or Sq come back as zeros) into a two-stage
+//     then K and V tiles of 128 keys (64 at D = 256) by TMA (rank-4
+//     tensor maps over the tensors' own strides, 128-byte swizzle, 32-byte
+//     where a row of D is narrower; rows past Skv or Sq come back as
+//     zeros) into a two-stage
 //     ring, each stage with an mbarrier for K, one for V and one that the
 //     consumers release it on, so copies run under the consumers' math;
 //   * warpgroups 0 and 1 consume 64 query rows each, with the registers
@@ -53,7 +54,8 @@
 //   * one 256-thread block per (head, batch, query tile), tiles launched
 //     last-first; the tile is 128 rows, or 64 where a grid of 128-row
 //     tiles would not give every SM a block (the wrapper's
-//     f32_query_tile: the 1 x 16-head x 512 f32 prefill);
+//     f32_query_tile: the 1 x 16-head x 512 f32 prefill), and always 64
+//     at D = 256, where a 128-row tile does not fit in shared memory;
 //   * Q, K and V stay as they lie in memory, rows of D at a pitch of D + 4
 //     floats: both operands of S = Q K^T run along D, so no transposing
 //     scatter. Q is copied once; K and V tiles of 64 keys by cp.async,
@@ -376,13 +378,19 @@ int launch_d(const Params& p, int batch, cudaStream_t stream) {
   REPRO_LAUNCH_RESULT();
 }
 
+// The 128-row tile is built where it fits in an SM's 227 KB: at D = 256
+// its Q and P would take 170 KB beside 130 KB of K and V, so D = 256 has
+// the 64-row tile only (Q 65 KB, K and V 130 KB, P 20 KB: 215 KB).
+template <int D>
+constexpr bool kLargeTile = D <= 128;
+
 template <int D>
 int launch_tile(const Params& p, int batch, int bq, cudaStream_t stream) {
-  switch (bq) {
-    case 128: return launch_d<D, 128>(p, batch, stream);
-    case 64: return launch_d<D, 64>(p, batch, stream);  // small grids
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (bq == 64) return launch_d<D, 64>(p, batch, stream);  // small grids
+  if constexpr (kLargeTile<D>) {
+    if (bq == 128) return launch_d<D, 128>(p, batch, stream);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D, int BQ>
@@ -399,11 +407,11 @@ int info_d(int* regs, int* local_bytes, int* smem_bytes) {
 
 template <int D>
 int info_tile(int bq, int* regs, int* local_bytes, int* smem_bytes) {
-  switch (bq) {
-    case 128: return info_d<D, 128>(regs, local_bytes, smem_bytes);
-    case 64: return info_d<D, 64>(regs, local_bytes, smem_bytes);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (bq == 64) return info_d<D, 64>(regs, local_bytes, smem_bytes);
+  if constexpr (kLargeTile<D>) {
+    if (bq == 128) return info_d<D, 128>(regs, local_bytes, smem_bytes);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace simt
@@ -414,7 +422,6 @@ int info_tile(int bq, int* regs, int* local_bytes, int* smem_bytes) {
 namespace tc {
 
 constexpr int BQ = 128;      // query rows per block: two consumer warpgroups
-constexpr int BK = 128;      // keys per tile
 constexpr int STAGES = 2;    // K/V ring depth
 constexpr int THREADS = 384;
 constexpr int PRODUCER_WG = 2;
@@ -423,6 +430,11 @@ constexpr int CONSUMER_REGS = 232;
 
 template <int D>
 struct Cfg {
+  // Keys a tile: 128, or 64 at D = 256, where the Q tile (64 KB) and a
+  // two-stage ring of 128-key K and V tiles (256 KB) would not fit in the
+  // 227 KB of an SM; at 64 keys the ring is 128 KB. A consumer thread then
+  // holds 128 f32 of O, 32 of S and 32 registers of P's two bf16 halves.
+  static constexpr int BK = D > 128 ? 64 : 128;
   // A row of a shared-memory panel is one swizzle span: 128 bytes (64
   // bf16), or the whole row of D where that is narrower (D = 16: 32 B).
   static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;
@@ -525,6 +537,57 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
+// D[64xN] += A[64x16] B[16xN]: A from registers, B from shared memory
+// (MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -554,8 +617,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (p.causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
   if (p.window > 0) k_begin = max(0, q_first - p.window + 1);
-  k_begin = (k_begin / BK) * BK;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  k_begin = (k_begin / C::BK) * C::BK;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + C::BK - 1) / C::BK : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
@@ -579,17 +643,17 @@ __global__ void __launch_bounds__(THREADS, 1)
                  bb);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES;
-        const int k0 = k_begin + t * BK;
+        const int k0 = k_begin + t * C::BK;
         mbar_wait(empty + 8 * s, ((t / STAGES) & 1) ^ 1);
         mbar_expect_tx(full_k + 8 * s, C::KV_BYTES);
 #pragma unroll
         for (int pn = 0; pn < C::PANELS; ++pn)
-          tma_load(k_s + s * C::KV_BYTES + pn * BK * C::SW, &p.kmap,
+          tma_load(k_s + s * C::KV_BYTES + pn * C::BK * C::SW, &p.kmap,
                    full_k + 8 * s, pn * C::PW, k0, hk, bb);
         mbar_expect_tx(full_v + 8 * s, C::KV_BYTES);
 #pragma unroll
         for (int pn = 0; pn < C::PANELS; ++pn)
-          tma_load(v_s + s * C::KV_BYTES + pn * BK * C::SW, &p.vmap,
+          tma_load(v_s + s * C::KV_BYTES + pn * C::BK * C::SW, &p.vmap,
                    full_v + 8 * s, pn * C::PW, k0, hk, bb);
       }
     }
@@ -605,11 +669,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int wg_qmax = wg_qmin + 63;
 
     float o[D / 2];
-    float s[BK / 2];
+    float s[C::BK / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    for (int i = 0; i < C::BK / 2; ++i) s[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};  // this thread's columns only, until the end
 
@@ -617,7 +681,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % STAGES;
       const uint32_t parity = (t / STAGES) & 1;
-      const int k0 = k_begin + t * BK;
+      const int k0 = k_begin + t * C::BK;
 
       // S = Q K^T, both K-major in shared memory
       mbar_wait(full_k + 8 * st, parity);
@@ -631,7 +695,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_ss<0>(s,
                  make_desc(q_s + pn * BQ * C::SW + wg * 64 * C::SW + off, 16,
                            8 * C::SW, C::LAYOUT),
-                 make_desc(kt + pn * BK * C::SW + off, 16, 8 * C::SW,
+                 make_desc(kt + pn * C::BK * C::SW + off, 16, 8 * C::SW,
                            C::LAYOUT),
                  kk > 0);
       }
@@ -640,14 +704,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       pin(s);
 
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) s[i] *= p.scale_log2;
+      for (int i = 0; i < C::BK / 2; ++i) s[i] *= p.scale_log2;
       // masks, only where the tile crosses Skv, the diagonal or the window
-      const bool edge = k0 + BK > p.skv ||
-                        (p.causal && k0 + BK - 1 > wg_qmin) ||
+      const bool edge = k0 + C::BK > p.skv ||
+                        (p.causal && k0 + C::BK - 1 > wg_qmin) ||
                         (p.window > 0 && k0 <= wg_qmax - p.window);
       if (edge) {
 #pragma unroll
-        for (int c = 0; c < BK / 8; ++c)
+        for (int c = 0; c < C::BK / 8; ++c)
 #pragma unroll
           for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -664,7 +728,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // online softmax in base 2: rows are shared by the 4 lanes of a quad
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int c = 0; c < BK / 8; ++c)
+      for (int c = 0; c < C::BK / 8; ++c)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -690,10 +754,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       // P in the A-operand layout of wgmma: register 2 c + i holds the
       // pair (c, i, 0..1), so k16 step kk reads registers 4 kk .. 4 kk + 3
-      uint32_t p_hi[BK / 4];
-      uint32_t p_lo[BK / 4];
+      uint32_t p_hi[C::BK / 4];
+      uint32_t p_lo[C::BK / 4];
 #pragma unroll
-      for (int c = 0; c < BK / 8; ++c)
+      for (int c = 0; c < C::BK / 8; ++c)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const float e0 = exp2f(s[4 * c + 2 * i] - m_use[i]);
@@ -714,16 +778,16 @@ __global__ void __launch_bounds__(THREADS, 1)
       pin(p_lo);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
+      for (int kk = 0; kk < C::BK / 16; ++kk)
         wgmma_rs(o, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2],
                  p_hi[4 * kk + 3],
-                 make_desc(vt + kk * 16 * C::SW, BK * C::SW, 8 * C::SW,
+                 make_desc(vt + kk * 16 * C::SW, C::BK * C::SW, 8 * C::SW,
                            C::LAYOUT));
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
+      for (int kk = 0; kk < C::BK / 16; ++kk)
         wgmma_rs(o, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2],
                  p_lo[4 * kk + 3],
-                 make_desc(vt + kk * 16 * C::SW, BK * C::SW, 8 * C::SW,
+                 make_desc(vt + kk * 16 * C::SW, C::BK * C::SW, 8 * C::SW,
                            C::LAYOUT));
       wgmma_commit();
       wgmma_wait_all();
@@ -796,6 +860,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
   if (!encode(fn, &p.qmap, q, D, sq, h, batch, qs, BQ, Cfg<D>::SW))
     return static_cast<int>(cudaErrorInvalidValue);
   if (skv > 0) {
+    constexpr int BK = Cfg<D>::BK;
     if (!encode(fn, &p.kmap, k, D, skv, hkv, batch, ks, BK, Cfg<D>::SW) ||
         !encode(fn, &p.vmap, v, D, skv, hkv, batch, vs, BK, Cfg<D>::SW))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -866,6 +931,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
     case 16: return simt::launch_tile<16>(p, batch, bq, s);  // CPU-test config
     case 64: return simt::launch_tile<64>(p, batch, bq, s);
     case 128: return simt::launch_tile<128>(p, batch, bq, s);  // qwen3-1.7b
+    case 256: return simt::launch_tile<256>(p, batch, bq, s);  // recurrentgemma
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -888,6 +954,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     case 128:
       return tc::launch_d<128>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
                                skv, causal, window, scale, s);
+    case 256:
+      return tc::launch_d<256>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
+                               skv, causal, window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -901,17 +970,20 @@ extern "C" int flash_attention_bf16_info(int d, int* regs, int* local_bytes,
     case 16: return tc::info_d<16>(regs, local_bytes, smem_bytes);
     case 64: return tc::info_d<64>(regs, local_bytes, smem_bytes);
     case 128: return tc::info_d<128>(regs, local_bytes, smem_bytes);
+    case 256: return tc::info_d<256>(regs, local_bytes, smem_bytes);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The same for the f32 kernel with query tile bq (128 or 64).
+// The same for the f32 kernel with query tile bq (128 or 64; 64 only at
+// D = 256).
 extern "C" int flash_attention_f32_info(int d, int bq, int* regs,
                                         int* local_bytes, int* smem_bytes) {
   switch (d) {
     case 16: return simt::info_tile<16>(bq, regs, local_bytes, smem_bytes);
     case 64: return simt::info_tile<64>(bq, regs, local_bytes, smem_bytes);
     case 128: return simt::info_tile<128>(bq, regs, local_bytes, smem_bytes);
+    case 256: return simt::info_tile<256>(bq, regs, local_bytes, smem_bytes);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

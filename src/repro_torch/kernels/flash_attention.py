@@ -10,7 +10,9 @@ softmax in registers. f32 runs as IEEE f32 on the SIMT FMA pipes: one
 copied by ``cp.async`` under the FMAs, 8 rows x 4 keys of S and 8 rows x
 8 columns of O a thread in registers, the softmax in registers. Its
 query tile is 128 rows, or 64 where a grid of 128-row tiles would leave
-SMs without a block (:func:`f32_query_tile`). Both take GQA by indexing
+SMs without a block, and always 64 at head dim 256, where a 128-row tile
+does not fit in shared memory (:func:`f32_query_tile`); bf16 takes key
+tiles of 64 at head dim 256 for the same reason. Both take GQA by indexing
 the K/V head, causal and local-window masks on right-aligned positions,
 and skip the key tiles outside the masks. :func:`flash_attention` takes
 the plain version for CPU tensors and launches a kernel for CUDA
@@ -36,7 +38,7 @@ from .build import CudaKernel, device_sm_count
 
 __all__ = ["KERNEL", "HEAD_DIMS", "F32_QUERY_TILES", "flash_attention",
            "kernel_info", "kernel_operand", "tma_ready", "f32_vector_loads",
-           "f32_query_tile"]
+           "f32_query_tiles", "f32_query_tile"]
 
 _STRIDES = ctypes.c_longlong * 3
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -51,11 +53,16 @@ _INFO_ARGS = (ctypes.c_int, ctypes.POINTER(ctypes.c_int),
               ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
 _F32_INFO_ARGS = (ctypes.c_int,) + _INFO_ARGS
 _DTYPES = (torch.float32, torch.bfloat16)
-#: head dims the kernels are instantiated for
-HEAD_DIMS = (16, 64, 128)
+#: head dims the kernels are instantiated for: the smoke configs' 16,
+#: whisper-tiny's 64, the 128 of the dense, moe and vlm configs, and
+#: recurrentgemma-9b's 256
+HEAD_DIMS = (16, 64, 128, 256)
 #: f32 query tiles (rows a block): the large tile, and the one for grids
 #: that would leave SMs without a block
 F32_QUERY_TILES = (128, 64)
+#: the largest head dim with the large f32 tile: at 256 its Q, K, V and P
+#: take 300 KB of shared memory, more than an SM has
+F32_LARGE_TILE_MAX_D = 128
 #: TMA's alignment of a tensor's base address and strides, in bytes, and
 #: that of the f32 kernel's 16-byte copies
 TMA_ALIGN = 16
@@ -99,12 +106,24 @@ def f32_vector_loads(t: torch.Tensor) -> bool:
         n == 1 or st % 4 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
-def f32_query_tile(batch: int, heads: int, sq: int, sm_count: int) -> int:
+def f32_query_tiles(d: int) -> tuple:
+    """The f32 kernel's query tiles built for head dim ``d``: both of
+    :data:`F32_QUERY_TILES`, or only 64 rows above
+    :data:`F32_LARGE_TILE_MAX_D`."""
+    return F32_QUERY_TILES if d <= F32_LARGE_TILE_MAX_D \
+        else F32_QUERY_TILES[1:]
+
+
+def f32_query_tile(batch: int, heads: int, sq: int, sm_count: int,
+                   d: int = 128) -> int:
     """The f32 kernel's query tile for a grid of ``batch x heads`` blocks
-    over ``sq`` queries: 128 rows, unless 128-row tiles would give fewer
-    blocks than the card has SMs (qwen3-1.7b's 1 x 16 heads x 512: 64
-    blocks on 132 SMs); then 64."""
+    over ``sq`` queries at head dim ``d``: 128 rows, unless 128-row tiles
+    would give fewer blocks than the card has SMs (qwen3-1.7b's 1 x 16
+    heads x 512: 64 blocks on 132 SMs), or ``d`` has only the 64-row tile
+    (:func:`f32_query_tiles`); then 64."""
     big, small = F32_QUERY_TILES
+    if big not in f32_query_tiles(d):
+        return small
     return big if batch * heads * -(-sq // big) >= sm_count else small
 
 
@@ -148,7 +167,7 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), window, scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.float32:
-        tile = f32_query_tile(b, h, sq, device_sm_count(q.device.index))
+        tile = f32_query_tile(b, h, sq, device_sm_count(q.device.index), d)
         vec = sum(int(f32_vector_loads(t)) << i
                   for i, t in enumerate((q, k, v)))
         KERNEL.launch("flash_attention_f32", *args, tile, vec, stream)

@@ -9,7 +9,9 @@ device-resident cache; the engine batches requests (gang-scheduled — the
 model cache carries a batch-uniform decode position, so mid-batch joins
 are disabled) and reports per-request p50/p95/p99 latency, the time to
 first token, and the DeviceRef traffic counters. ``--sync`` runs the
-static-batch loop instead of the engine. ``--paged`` serves through a
+static-batch loop instead of the engine; an encdec arch (whisper-tiny)
+always takes it, with random frames from numpy seed 0, as in the JAX
+launcher. ``--paged`` serves through a
 :class:`~repro_torch.serve.PagePool` with disaggregated prefill and
 decode: a one-layer greedy attention decoder at the config's widths
 whose KV entries live in pages.
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["main", "check_cache_capacity", "cache_batch_axes",
-           "engine_fns", "run_engine", "run_sync", "paged_weights", "paged_model",
+           "engine_fns", "run_engine", "sync_frames", "run_sync",
+           "paged_weights", "paged_model",
            "paged_prompts",
            "run_paged", "contiguous_tokens"]
 
@@ -126,16 +129,30 @@ def run_engine(model, params, *, requests: int, batch: int, steps: int,
                 "memref_before": before, "memref_after": memory_stats()}
 
 
+def sync_frames(cfg, batch: int) -> np.ndarray:
+    """The encdec sync loop's frames ``[batch, n_frames, d_model]``:
+    standard normal from numpy seed 0, as the JAX launcher draws them, f32
+    (the model casts them to its compute dtype)."""
+    rng = np.random.default_rng(0)
+    return rng.standard_normal(
+        (batch, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
+
+
 def run_sync(model, params, *, batch: int, steps: int,
              prompts: Optional[Sequence[int]] = None) -> Dict:
     """The static-batch loop: ``batch`` sequences decode ``steps`` tokens
-    together from one cache. ``prompts`` are their first tokens (all 0 by
+    together from one cache (for encdec, the encoder's prefill of
+    :func:`sync_frames`). ``prompts`` are their first tokens (all 0 by
     default). Returns the tokens ``[batch, steps]`` and the wall time."""
     from ..dist.step import build_serve_step
 
     capacity = check_cache_capacity(steps, steps + 1)
     serve_step = build_serve_step(model)
-    cache = model.init_cache(batch, capacity)
+    if model.cfg.family == "encdec":
+        cache = model.init_cache(batch, capacity, params=params,
+                                 frames=sync_frames(model.cfg, batch))
+    else:
+        cache = model.init_cache(batch, capacity)
     first = [0] * batch if prompts is None else list(prompts)
     toks = torch.tensor(first, dtype=torch.int32,
                         device=model.device)[:, None]
@@ -366,7 +383,7 @@ def main(argv=None) -> int:
         return 0
     model = Model(cfg, device=device)
     params = model.init(0)
-    if args.sync:
+    if args.sync or cfg.family == "encdec":
         run = run_sync(model, params, batch=args.batch, steps=args.steps)
         n = args.steps * args.batch
         print(f"{cfg.name}: {args.steps} steps × {args.batch} requests "

@@ -1,6 +1,6 @@
 """Training launcher — the port of the JAX package's
-``repro/launch/train.py``: any dense arch's smoke config (or, with
-``--full``, its published config) trained on synthetic data with AdamW,
+``repro/launch/train.py``: any arch's smoke config (or, with ``--full``,
+its published config) trained on synthetic data with AdamW,
 a warmup-cosine schedule and optional checkpoints.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \

@@ -1,6 +1,6 @@
-"""Full-sequence attention (prefill): GQA/MQA with qk-norm, QKV bias and
-RoPE — the port of the JAX package's ``repro/models/attention.py`` up to
-``attention()``.
+"""Attention: GQA/MQA with qk-norm, QKV bias, RoPE or M-RoPE, local
+windows and cross-attention — the port of the JAX package's
+``repro/models/attention.py``.
 
 ``impl="kernel"`` is the counterpart of the JAX package's ``"pallas"``:
 it runs ``ops.flash_attention``, which launches the hand-written flash
@@ -9,7 +9,11 @@ kernel has no logit softcap, so a config with one raises there, and it
 has no backward, so it raises under grad on every device (the CPU's
 plain version would differentiate, the card's kernel would not).
 ``impl="ref"`` (the default, as ``"xla"`` is in JAX) is the grouped-head
-einsum, which never repeats K/V per query head.
+einsum, which never repeats K/V per query head. ``impl="ref_chunked"``
+(or ``"ref_chunked:N"``, chunks of N queries, 512 by default) is JAX's
+``"xla_chunked"``: the same einsums over one query chunk at a time, so
+the score tensor is ``[B,H,N,Skv]``; a sequence the chunk does not
+divide (whisper's 1500 frames) takes the plain path, as in JAX.
 
 The decode path (:func:`init_kv_cache`, :func:`decode_attention`) is
 plain PyTorch, as it is plain XLA in the JAX package: one new token
@@ -19,8 +23,6 @@ cache is never written, so a decode step can be replayed on the same
 cache. A decode step over many layers makes that copy, the write index,
 the validity mask and the RoPE tables once for all its layers and hands
 them to :func:`decode_attention_into`, which writes into the copy.
-The chunked prefill and cross-attention come with the encdec family
-(ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -31,13 +33,28 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import apply_norm, init_norm, normal, rope_tables, rotate
+from .layers import (apply_norm, init_norm, m_rope_tables, normal,
+                     rope_tables, rotate)
 
-__all__ = ["ATTN_IMPLS", "init_attention", "attention", "init_kv_cache",
-           "decode_rope", "decode_mask", "write_index",
-           "decode_attention_into", "decode_attention"]
+__all__ = ["ATTN_IMPLS", "check_impl", "init_attention", "attention",
+           "project_kv", "init_kv_cache", "decode_rope", "decode_mask",
+           "write_index", "decode_attention_into", "decode_attention"]
 
-ATTN_IMPLS = ("ref", "kernel")
+ATTN_IMPLS = ("ref", "kernel", "ref_chunked")
+#: query rows a chunk of ``"ref_chunked"`` without a ``:N``
+DEFAULT_Q_CHUNK = 512
+
+
+def check_impl(impl: str) -> str:
+    """``impl`` if it names an attention implementation: one of
+    :data:`ATTN_IMPLS`, or ``"ref_chunked:N"`` with N a positive int;
+    else ``ValueError``."""
+    name, _, chunk = impl.partition(":")
+    if name in ATTN_IMPLS and (not chunk or (name == "ref_chunked" and
+                                             chunk.isdigit() and int(chunk))):
+        return impl
+    raise ValueError(f"attn_impl={impl!r}; expected one of {ATTN_IMPLS} or "
+                     "'ref_chunked:N'")
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device
@@ -63,12 +80,13 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device
 
 def decode_rope(cfg: ModelConfig, positions: Optional[torch.Tensor]
                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """The RoPE tables for ``positions`` [B,S] (None: no rotation)."""
+    """The RoPE tables for ``positions`` [B,S], or M-RoPE's for
+    ``positions`` [3,B,S] where ``cfg.m_rope`` (None: no rotation)."""
     if positions is None:
         return None
     if cfg.m_rope:
-        raise NotImplementedError("M-RoPE comes with the vlm family "
-                                  "(ROADMAP A10)")
+        return m_rope_tables(positions, cfg.resolved_head_dim,
+                             cfg.rope_theta, cfg.mrope_sections)
     return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
@@ -94,7 +112,7 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope
 
 def _mha(q, k, v, *, causal: bool, window: Optional[int],
          softcap: Optional[float], impl: str) -> torch.Tensor:
-    """q: [B,S,H,D] → [B,S,H,D]; k/v: [B,S,Hkv,D]."""
+    """q: [B,Sq,H,D] → [B,Sq,H,D]; k/v: [B,Skv,Hkv,D]."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if impl == "kernel":
         if q.requires_grad or k.requires_grad or v.requires_grad:
@@ -107,6 +125,27 @@ def _mha(q, k, v, *, causal: bool, window: Optional[int],
                 "softcap (ROADMAP B6); use attn_impl='ref'")
         out = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
         return out.transpose(1, 2)
+    sq = qt.shape[2]
+    if impl.startswith("ref_chunked"):
+        _, _, chunk = impl.partition(":")
+        q_chunk = min(int(chunk) if chunk else DEFAULT_Q_CHUNK, sq)
+        if sq % q_chunk == 0:
+            return _mha_chunked(qt, kt, vt, causal=causal, window=window,
+                                softcap=softcap, q_chunk=q_chunk
+                                ).transpose(1, 2)
+    # (a sequence the chunk does not divide, such as whisper's 1500-frame
+    # encoder, falls through to the plain path, as in JAX)
+    out = _scores_softmax_pv(qt, kt, vt, kt.shape[2] - sq, causal=causal,
+                             window=window, softcap=softcap)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _scores_softmax_pv(qt, kt, vt, q_offset: int, *, causal: bool,
+                       window: Optional[int], softcap: Optional[float]
+                       ) -> torch.Tensor:
+    """The grouped-head einsum attention of the queries ``qt`` [B,H,Sq,D]
+    over ``kt``, ``vt`` [B,Hkv,Skv,D] → [B,H,Sq,D] in ``vt``'s dtype. Query
+    i sits at key position ``q_offset + i`` for the masks."""
     b, h, sq, d = qt.shape
     hkv, skv = kt.shape[1], kt.shape[2]
     qg = qt.reshape(b, hkv, h // hkv, sq, d)
@@ -114,30 +153,67 @@ def _mha(q, k, v, *, causal: bool, window: Optional[int],
                           kt.float()) * (d ** -0.5)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > (qpos - window)
-    logits = logits.masked_fill(~mask, -1e30)
+    if causal or window is not None:
+        qpos = torch.arange(sq, device=qt.device)[:, None] + q_offset
+        kpos = torch.arange(skv, device=qt.device)[None, :]
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=qt.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > (qpos - window)
+        logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1).to(vt.dtype)
-    out = torch.einsum("bkgqK,bkKd->bkgqd", probs, vt).reshape(b, h, sq, d)
-    return out.transpose(1, 2).to(q.dtype)
+    return torch.einsum("bkgqK,bkKd->bkgqd", probs, vt).reshape(b, h, sq, d)
+
+
+def _mha_chunked(qt, kt, vt, *, causal: bool, window: Optional[int],
+                 softcap: Optional[float], q_chunk: int) -> torch.Tensor:
+    """Sarathi-style chunked prefill: one query chunk at a time, so the
+    score tensor is [B,H,qc,Skv] instead of [B,H,Sq,Skv] (JAX's
+    ``lax.scan`` over chunks). qt [B,H,Sq,D] → [B,H,Sq,D] in qt's dtype."""
+    sq, skv = qt.shape[2], kt.shape[2]
+    outs = [_scores_softmax_pv(qt[:, :, c:c + q_chunk], kt, vt, c + skv - sq,
+                               causal=causal, window=window, softcap=softcap)
+            for c in range(0, sq, q_chunk)]
+    return torch.cat(outs, dim=2).to(qt.dtype)
 
 
 def attention(p, cfg: ModelConfig, x: torch.Tensor, positions, *,
               causal: bool = True, window: Optional[int] = None,
-              impl: str = "ref") -> torch.Tensor:
-    """Full-sequence self-attention (prefill): x [B,S,D] → [B,S,D]."""
-    if impl not in ATTN_IMPLS:
-        raise ValueError(f"attn impl {impl!r}; expected one of {ATTN_IMPLS}")
+              impl: str = "ref", cross_kv: Optional[Tuple] = None
+              ) -> torch.Tensor:
+    """Full-sequence attention (training / prefill): x [B,S,D] → [B,S,D].
+    ``positions`` [B,S], or [3,B,S] under M-RoPE (None: no rotation).
+
+    ``cross_kv=(k, v)`` switches to cross-attention (the whisper
+    decoder): K/V [B,T,Hkv,Dh] come from the encoder (:func:`project_kv`),
+    with no causal mask and no window.
+    """
+    check_impl(impl)
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, decode_rope(cfg, positions))
+    if cross_kv is not None:
+        k, v = cross_kv
+        causal, window = False, None
     out = _mha(q, k, v, causal=causal, window=window,
                softcap=cfg.attn_logit_softcap, impl=impl)
     return out.reshape(b, s, -1) @ p["wo"]
+
+
+def project_kv(p, cfg: ModelConfig, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoder-side K/V [B,T,Hkv,Dh] for cross-attention (computed once a
+    request)."""
+    b, s, _ = x.shape
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    if cfg.attn_bias:
+        k = k + p["bk"].reshape(hkv, hd)
+        v = v + p["bv"].reshape(hkv, hd)
+    if cfg.qk_norm:
+        k = apply_norm(p["k_norm"], k, "rmsnorm")
+    return k, v
 
 
 # ----------------------------------------------------------------------------

@@ -6,8 +6,7 @@ dicts (``p["scale"]``): :class:`ParamTree` holds them as nested
 ``nn.Module``\\ s, so a served model's layers are modules of their own
 on one device; training takes the same tensors as plain nested dicts
 (:func:`plain_tree`). Initializers take an explicit ``torch.Generator``
-and device and return plain dicts of tensors. ``apply_m_rope`` and
-``sinusoidal_positions`` come with the vlm and encdec families.
+and device and return plain dicts of tensors.
 """
 from __future__ import annotations
 
@@ -19,9 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["ParamTree", "plain_tree", "init_norm", "apply_norm", "rope_freqs",
-           "rope_tables", "rotate", "apply_rope", "MLP_KINDS", "init_mlp",
-           "apply_mlp",
-           "init_embedding", "normal"]
+           "rope_tables", "m_rope_tables", "rotate", "apply_rope",
+           "apply_m_rope", "sinusoidal_positions", "MLP_KINDS", "init_mlp",
+           "apply_mlp", "init_embedding", "normal"]
 
 
 class ParamTree(nn.Module):
@@ -119,10 +118,44 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
 
 
+def m_rope_tables(positions3: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, int, int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE's (cos, sin) [B,S,1,d/2] (Qwen2-VL,
+    arXiv:2409.12191) for ``positions3`` [3,B,S] — temporal, height and
+    width position ids. The head dim's frequency pairs are split into
+    ``sections``, each rotated by its own position stream."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {head_dim // 2}")
+    freqs = rope_freqs(head_dim, theta, positions3.device)       # (d/2,)
+    # section id of each frequency pair: [d/2] in {0, 1, 2}
+    sec_ids = torch.repeat_interleave(
+        torch.arange(3, device=positions3.device),
+        torch.tensor(sections, device=positions3.device))
+    pos = positions3.index_select(0, sec_ids)                     # [d/2,B,S]
+    angles = pos.permute(1, 2, 0).float() * freqs                 # [B,S,d/2]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: [B,S,H,D]; positions: [B,S] ints. Half-split (NeoX) convention."""
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def apply_m_rope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                 sections: Tuple[int, int, int]) -> torch.Tensor:
+    """x: [B,S,H,D]; positions3: [3,B,S] ints (:func:`m_rope_tables`)."""
+    return rotate(x, *m_rope_tables(positions3, x.shape[-1], theta, sections))
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table [n, d], f32."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor

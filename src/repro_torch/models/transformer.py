@@ -1,23 +1,27 @@
-"""Decoder-only LM assembly, dense family — the port of the JAX package's
+"""Decoder-only LM assembly — the port of the JAX package's
 ``repro/models/transformer.py``: the forward pass (prefill and training),
-the loss, and the cache-carrying decode step.
+the loss, and the cache-carrying decode step, for the dense, moe, ssm,
+hybrid and vlm families (encdec is ``models/encdec.py``).
 
-The JAX package stacks each layer group's parameters along a leading
-``count`` axis and runs the group as one ``jax.lax.scan``. PyTorch runs
-eagerly, so here every layer is a module of its own (``params["layers"]``,
-in execution order) and the forward pass is a Python loop over them.
+A model is a list of *groups*, each a repeating *unit* of block kinds
+(``("attn",)`` for dense, moe and vlm, ``("ssm",)`` for mamba2,
+``("rec", "rec", "attn")`` for RecurrentGemma's 1:2 hybrid pattern, with
+a shorter remainder group where the layers do not fill whole units). The
+JAX package stacks each group's parameters along a leading ``count`` axis
+and runs the group as one ``jax.lax.scan``. PyTorch runs eagerly, so here
+every layer is a module of its own (``params["layers"]``, in execution
+order, :func:`layer_kinds`) and the forward pass is a Python loop over
+them.
 
 The decode cache keeps the JAX package's structure, ``{"len": int32 0-d,
-"groups": [[{"k", "v"}]]}`` with leaves stacked ``[count, B, S, Hkv,
-Dh]`` per group, so caches convert between the packages leaf for leaf
+"groups": [[leaves of each unit block]]}`` with leaves stacked ``[count,
+B, ...]`` per group (attention ``{"k", "v"}``, ssm and rec ``{"state",
+"conv"}``), so caches convert between the packages leaf for leaf
 (``convert.cache_from_jax``). :func:`decode_step` is pure: it returns a
 new cache and never writes the one it was given.
 
 While grad is enabled, each layer runs under the remat policy of
 ``cfg.remat`` (:func:`apply_remat`), as each scan body does in JAX.
-
-The moe, ssm, hybrid, encdec and vlm families come later (ROADMAP A10);
-their unit kinds raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -30,21 +34,17 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .layers import (ParamTree, apply_mlp, apply_norm, init_embedding,
                      init_mlp, init_norm)
 
-__all__ = ["check_family", "REMAT_POLICIES", "apply_remat", "layer_groups",
-           "init_params", "embed_inputs", "forward", "loss_fn",
-           "cross_entropy", "init_cache", "decode_step"]
+__all__ = ["REMAT_POLICIES", "apply_remat", "layer_groups", "layer_kinds",
+           "init_params", "embed_inputs", "default_positions", "forward",
+           "loss_fn", "cross_entropy", "init_cache", "decode_step"]
 
 REMAT_POLICIES = ("none", "full", "dots")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense decoder family; "
-            f"{cfg.family!r} models are still to be ported (ROADMAP A10)")
 
 
 # the products whose outputs the "dots" policy keeps: ``x @ W`` folds its
@@ -81,30 +81,61 @@ def apply_remat(body: Callable, remat: str) -> Callable:
 
 def layer_groups(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     """``(unit of block kinds, repeat count)`` per group, as in the JAX
-    package; the dense family is one group of attention blocks."""
-    check_family(cfg)
-    return [(("attn",), cfg.n_layers)]
+    package; an unknown family raises ``ValueError``."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        return [(("attn",), cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [(("ssm",), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        pat = tuple(cfg.hybrid.pattern)
+        full, rem = divmod(cfg.n_layers, len(pat))
+        groups: List[Tuple[Tuple[str, ...], int]] = [(pat, full)]
+        if rem:
+            groups.append((pat[:rem], 1))
+        return groups
+    raise ValueError(f"{cfg.name}: no decoder-only family {cfg.family!r}")
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, dtype, device
-                ) -> dict:
-    return {"norm1": init_norm(cfg.d_model, cfg.norm, dtype, device),
-            "attn": attn_mod.init_attention(gen, cfg, dtype, device),
-            "norm2": init_norm(cfg.d_model, cfg.norm, dtype, device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype,
-                            device)}
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """The block kind of each entry of ``params["layers"]``, in execution
+    order: group by group, unit by unit."""
+    return [kind for unit, count in layer_groups(cfg)
+            for _ in range(count) for kind in unit]
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
+                device) -> dict:
+    d = cfg.d_model
+    if kind == "attn":
+        p = {"norm1": init_norm(d, cfg.norm, dtype, device),
+             "attn": attn_mod.init_attention(gen, cfg, dtype, device),
+             "norm2": init_norm(d, cfg.norm, dtype, device)}
+        if cfg.family == "moe":
+            p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
+        else:
+            p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp, dtype, device)
+        return p
+    if kind == "ssm":
+        return {"norm1": init_norm(d, cfg.norm, dtype, device),
+                "ssm": ssm_mod.init_ssm(gen, cfg, dtype, device)}
+    if kind == "rec":
+        return {"norm1": init_norm(d, cfg.norm, dtype, device),
+                "rec": rglru_mod.init_rglru(gen, cfg, dtype, device),
+                "norm2": init_norm(d, cfg.norm, dtype, device),
+                "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp, dtype, device)}
+    raise ValueError(kind)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 vocab: Optional[int] = None, *, device) -> ParamTree:
     """Random parameters drawn from ``gen`` on ``device`` (the generator's
-    device): ``embed``, ``layers`` (one module per layer), ``final_norm``
-    and, without tied embeddings, ``head``."""
+    device): ``embed``, ``layers`` (one module per layer, in
+    :func:`layer_kinds`' order), ``final_norm`` and, without tied
+    embeddings, ``head``."""
     dtype = getattr(torch, cfg.param_dtype)
     vocab = vocab or cfg.vocab_size
-    layers = [_init_block(gen, cfg, dtype, device)
-              for unit, count in layer_groups(cfg)
-              for _ in range(count) for _kind in unit]
+    layers = [_init_block(gen, cfg, kind, dtype, device)
+              for kind in layer_kinds(cfg)]
     params = {"embed": init_embedding(gen, vocab, cfg.d_model, dtype, device),
               "layers": layers,
               "final_norm": init_norm(cfg.d_model, cfg.norm, dtype, device)}
@@ -114,47 +145,86 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     return ParamTree(params)
 
 
-def _apply_block(block, cfg: ModelConfig, x: torch.Tensor, positions,
-                 attn_impl: str) -> torch.Tensor:
+def _apply_block(block, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                 positions, attn_impl: str
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer: ``(x, the MoE aux loss of the layer or None)``."""
     h = apply_norm(block["norm1"], x, cfg.norm)
-    x = x + attn_mod.attention(block["attn"], cfg, h, positions, causal=True,
-                               window=None, impl=attn_impl)
-    h = apply_norm(block["norm2"], x, cfg.norm)
-    return x + apply_mlp(block["mlp"], h, cfg.mlp)
+    if kind == "ssm":
+        return x + ssm_mod.apply_ssm(block["ssm"], cfg, h), None
+    aux = None
+    if kind == "attn":
+        window = cfg.hybrid.window if cfg.family == "hybrid" else None
+        x = x + attn_mod.attention(block["attn"], cfg, h, positions,
+                                   causal=True, window=window, impl=attn_impl)
+        h = apply_norm(block["norm2"], x, cfg.norm)
+        if "moe" in block:
+            y, aux = moe_mod.apply_moe(block["moe"], cfg, h)
+        else:
+            y = apply_mlp(block["mlp"], h, cfg.mlp)
+        return x + y, aux
+    if kind == "rec":
+        x = x + rglru_mod.apply_rglru(block["rec"], cfg, h)
+        h = apply_norm(block["norm2"], x, cfg.norm)
+        return x + apply_mlp(block["mlp"], h, cfg.mlp), None
+    raise ValueError(kind)
 
 
-def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor
+def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
+                 vision_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.dtype())
+    """Token embeddings [B,S,D] in the compute dtype; ``vision_embeds``
+    [B,P,D] (the vlm family's stub frontend) replace the first P."""
+    x = params["embed"][tokens]
+    if vision_embeds is not None:
+        n = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, n:, :]], dim=1)
+    return x.to(cfg.dtype())
+
+
+def default_positions(cfg: ModelConfig, start: torch.Tensor, b: int, s: int
+                      ) -> torch.Tensor:
+    """Positions ``start .. start + s - 1`` of ``b`` sequences: [B,S], or
+    [3,B,S] (all three streams alike) under M-RoPE."""
+    base = (start + torch.arange(s, device=start.device)).expand(b, s)
+    return base.expand(3, b, s) if cfg.m_rope else base
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
+            vision_embeds: Optional[torch.Tensor] = None,
             attn_impl: str = "ref") -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B,S] → (logits [B,S,V], aux loss, 0 for the dense family)."""
-    check_family(cfg)
+    """tokens [B,S] → (logits [B,S,V], aux loss f32 0-d: the MoE layers'
+    sum, else 0)."""
     b, s = tokens.shape
+    kinds = layer_kinds(cfg)
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed_inputs(params, cfg, tokens)
+        positions = default_positions(
+            cfg, torch.zeros((), dtype=torch.int64, device=tokens.device),
+            b, s)
+    x = embed_inputs(params, cfg, tokens, vision_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block_fn = _apply_block
     if torch.is_grad_enabled():
         block_fn = apply_remat(_apply_block, cfg.remat)
-    for block in params["layers"]:
-        x = block_fn(block, cfg, x, positions, attn_impl)
+    for block, kind in zip(params["layers"], kinds):
+        x, a = block_fn(block, cfg, kind, x, positions, attn_impl)
+        if a is not None:
+            aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = x @ head.to(x.dtype)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             attn_impl: str = "ref"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross entropy (+ the aux loss, 0 for the dense
-    family): ``(loss, {"ce", "aux"})``, all f32 0-d tensors."""
+    """Mean next-token cross entropy + the MoE aux loss: ``(loss, {"ce",
+    "aux"})``, all f32 0-d tensors."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           positions=batch.get("positions"),
+                          vision_embeds=batch.get("vision_embeds"),
                           attn_impl=attn_impl)
     ce = cross_entropy(logits, batch["labels"])
     return ce + aux, {"ce": ce, "aux": aux}
@@ -176,63 +246,90 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device
                ) -> Dict[str, Any]:
     """A zero cache for ``batch`` sequences of up to ``max_len`` tokens on
-    ``device`` (``"meta"`` for shapes only)."""
+    ``device`` (``"meta"`` for shapes only). The hybrid family's local
+    attention keeps a ring of ``min(max_len, window)`` slots."""
     dtype = cfg.dtype()
     groups = []
     for unit, count in layer_groups(cfg):
         unit_caches = []
         for kind in unit:
-            if kind != "attn":
-                raise NotImplementedError(
-                    f"{kind!r} decode units come with their model family "
-                    "(ROADMAP A10)")
-            unit_caches.append(attn_mod.init_kv_cache(
-                cfg, batch, max_len, dtype, count, device))
+            if kind == "attn":
+                slots = max_len if cfg.family != "hybrid" \
+                    else min(max_len, cfg.hybrid.window)
+                unit_caches.append(attn_mod.init_kv_cache(
+                    cfg, batch, slots, dtype, count, device))
+            elif kind == "ssm":
+                unit_caches.append(ssm_mod.init_ssm_cache(
+                    cfg, batch, dtype, count, device))
+            elif kind == "rec":
+                unit_caches.append(rglru_mod.init_rglru_cache(
+                    cfg, batch, dtype, count, device))
         groups.append(unit_caches)
     return {"len": torch.zeros((), dtype=torch.int32, device=device),
             "groups": groups}
 
 
-def _decode_block(block, cfg: ModelConfig, x: torch.Tensor, k, v, index,
-                  masked, rope):
+def _decode_block(block, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], ci: int, attn
+                  ) -> torch.Tensor:
+    """One layer of a decode step. ``cache`` holds the group's stacked
+    leaves, copies that this layer writes its slice ``ci`` of; ``attn`` is
+    the step's (write index, validity mask, RoPE tables)."""
     h = apply_norm(block["norm1"], x, cfg.norm)
-    x = x + attn_mod.decode_attention_into(block["attn"], cfg, h, k, v,
-                                           index, masked, rope)
-    h = apply_norm(block["norm2"], x, cfg.norm)
-    return x + apply_mlp(block["mlp"], h, cfg.mlp)
+    if kind == "attn":
+        x = x + attn_mod.decode_attention_into(
+            block["attn"], cfg, h, cache["k"][ci], cache["v"][ci], *attn)
+        h = apply_norm(block["norm2"], x, cfg.norm)
+        if "moe" in block:
+            y, _ = moe_mod.apply_moe(block["moe"], cfg, h)
+        else:
+            y = apply_mlp(block["mlp"], h, cfg.mlp)
+        return x + y
+    step = ssm_mod.decode_ssm if kind == "ssm" else rglru_mod.decode_rglru
+    y, state, conv = step(block[kind], cfg, h, cache["state"][ci],
+                          cache["conv"][ci])
+    cache["state"][ci].copy_(state)
+    cache["conv"][ci].copy_(conv)
+    x = x + y
+    if kind == "rec":
+        h = apply_norm(block["norm2"], x, cfg.norm)
+        x = x + apply_mlp(block["mlp"], h, cfg.mlp)
+    return x
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict[str, Any], *,
-                positions: Optional[torch.Tensor] = None
+                positions: Optional[torch.Tensor] = None,
+                vision_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens [B,1] + cache → (logits [B,1,V], a new cache). Each group's
-    stacked K and V are copied once, and every layer writes its row into
-    its slice of the copy; ``cache`` itself is left as it was. The write
-    index, the validity mask and the RoPE tables are made once a step."""
+    stacked leaves are copied once, and every layer writes its slice of
+    the copy; ``cache`` itself is left as it was. The attention write
+    index (a ring slot, ``len % capacity``, for the hybrid family's local
+    attention), the validity mask and the RoPE tables are made once a
+    step."""
     b = tokens.shape[0]
     cache_len = cache["len"]
     if positions is None:
-        positions = cache_len.reshape(1, 1).expand(b, 1)
-    smax = cache["groups"][0][0]["k"].shape[2]
-    index = attn_mod.write_index(cache_len, smax)
-    masked = attn_mod.decode_mask(cache_len, smax, None)
-    rope = attn_mod.decode_rope(cfg, positions)
-    x = embed_inputs(params, cfg, tokens)
+        positions = default_positions(cfg, cache_len, b, 1)
+    attn = None
+    kv = [c for (unit, _), gc in zip(layer_groups(cfg), cache["groups"])
+          for kind, c in zip(unit, gc) if kind == "attn"]
+    if kv:
+        smax = kv[0]["k"].shape[2]
+        pos = cache_len % smax if cfg.family == "hybrid" else cache_len
+        attn = (attn_mod.write_index(pos, smax),
+                attn_mod.decode_mask(cache_len, smax, None),
+                attn_mod.decode_rope(cfg, positions))
+    x = embed_inputs(params, cfg, tokens, vision_embeds)
     layers = iter(params["layers"])
     new_groups = []
-    for gi, (unit, count) in enumerate(layer_groups(cfg)):
-        for kind in unit:
-            if kind != "attn":
-                raise NotImplementedError(
-                    f"{kind!r} decode units come with their model family "
-                    "(ROADMAP A10)")
-        new = [{"k": c["k"].clone(), "v": c["v"].clone()}
-               for c in cache["groups"][gi]]
+    for (unit, count), gc in zip(layer_groups(cfg), cache["groups"]):
+        new = [{name: leaf.clone() for name, leaf in c.items()} for c in gc]
         for ci in range(count):
-            for unit_cache in new:
-                x = _decode_block(next(layers), cfg, x, unit_cache["k"][ci],
-                                  unit_cache["v"][ci], index, masked, rope)
+            for kind, unit_cache in zip(unit, new):
+                x = _decode_block(next(layers), cfg, kind, x, unit_cache, ci,
+                                  attn)
         new_groups.append(new)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]

@@ -38,6 +38,12 @@ def test_port_imports_no_jax_and_no_repro():
         import repro_torch.dist.collectives
         import repro_torch.optim, repro_torch.data, repro_torch.checkpoint
         import repro_torch.dist.fault, repro_torch.launch.train
+        import repro_torch.models.moe, repro_torch.models.ssm
+        import repro_torch.models.rglru, repro_torch.models.encdec
+        import repro_torch.configs.dbrx, repro_torch.configs.phi35_moe
+        import repro_torch.configs.mamba2_130m, repro_torch.configs.qwen2_vl
+        import repro_torch.configs.recurrentgemma_9b
+        import repro_torch.configs.whisper_tiny, repro_torch.configs.wah_paper
         bad = sorted(m for m in sys.modules
                      if m.startswith("jax") or m == "repro"
                      or m.startswith("repro.") or m.startswith("ml_dtypes"))

@@ -23,7 +23,7 @@ from repro_torch.examples.mandelbrot_offload import run as run_offload
 from repro_torch.indexing import (build_wah_index, build_wah_index_numpy,
                                   wah_index_pipeline_actors)
 from repro_torch.kernels import KERNELS, ops, ref
-from repro_torch.kernels.flash_attention import (F32_QUERY_TILES, HEAD_DIMS,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, f32_query_tiles,
                                                  f32_vector_loads,
                                                  flash_attention, kernel_info,
                                                  kernel_operand, tma_ready)
@@ -403,6 +403,11 @@ def test_mandelbrot_kernel_is_bit_exact(cuda_device, height, width,
     (1, 16, 8, 512, 512, 128, True, None),     # the f32 prefill: 64-row tiles
     (4, 16, 8, 300, 300, 64, True, 50),        # f32 128-row tiles, D = 64
     (4, 16, 4, 300, 300, 16, True, None),      # f32 128-row tiles, D = 16
+    (1, 2, 2, 256, 256, 256, True, None),      # D = 256, causal
+    (1, 2, 1, 520, 520, 256, True, 200),       # D = 256, window across tiles
+    (1, 16, 1, 384, 384, 256, True, None),     # D = 256, GQA 16:1
+    (2, 4, 2, 201, 333, 256, True, None),      # D = 256, ragged Sq and Skv
+    (1, 4, 4, 150, 270, 256, False, None),     # D = 256, not causal, Sq < Skv
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)])
@@ -513,9 +518,9 @@ def test_flash_attention_repeats_exactly(cuda_device, dtype):
 
 def test_flash_attention_f32_kernel_info(cuda_device):
     """The f32 kernel compiles without spills at every head dim and query
-    tile, and fits one block an SM."""
+    tile built for it, and fits one block an SM."""
     for d in HEAD_DIMS:
-        for tile in F32_QUERY_TILES:
+        for tile in f32_query_tiles(d):
             info = kernel_info(d, torch.float32, tile)
             assert info["query_tile"] == tile and info["spill_bytes"] == 0
             assert 0 < info["registers"] <= 255

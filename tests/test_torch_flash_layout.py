@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels import KERNELS, ref
 from repro_torch.kernels.flash_attention import (F32_QUERY_TILES, HEAD_DIMS,
                                                  f32_query_tile,
+                                                 f32_query_tiles,
                                                  f32_vector_loads,
                                                  flash_attention,
                                                  kernel_operand, tma_ready)
@@ -45,8 +46,11 @@ def _bshd(b, s, h, d, dtype=torch.bfloat16):
     lambda: _meta(2, 16, 300, 136)[..., :128],     # padded rows, 272 B
     lambda: _meta(2, 16, 300, 128)[:, :, 64:],     # offset by whole rows
     lambda: _meta(2, 16, 300, 128)[..., 8:72],     # base 16 B in
+    lambda: _bshd(1, 4096, 16, 256),               # recurrentgemma-9b's q
+    lambda: _bshd(1, 4096, 1, 256),                # its one K/V head
 ], ids=["contiguous", "bshd", "bshd_d16", "single_row", "length_one_axis",
-        "padded_rows", "row_offset", "column_slice"])
+        "padded_rows", "row_offset", "column_slice", "bshd_d256",
+        "bshd_d256_mqa"])
 def test_tma_ready_tensors_pass_through(make):
     t = make()
     assert tma_ready(t)
@@ -97,10 +101,12 @@ def _f32(*shape):
     (lambda: _f32(2, 16, 300, 128)[..., 1:65], False),       # base 4 B off
     (lambda: torch.empty_strided((2, 4, 300, 64), (4 * 19201, 19201, 64, 1),
                                  dtype=torch.float32, device="meta"), False),
+    (lambda: _bshd(1, 4096, 16, 256, dtype=torch.float32), True),  # D = 256
+    (lambda: _f32(1, 2, 300, 257)[..., :256], False),        # rows of 1028 B
 ], ids=["contiguous", "bshd", "bshd_d16", "padded_rows", "row_offset",
         "column_slice", "expanded_heads", "single_row", "odd_row_stride",
         "row_stride_8_bytes_off", "odd_base", "misaligned_base",
-        "head_stride_off"])
+        "head_stride_off", "bshd_d256", "odd_row_stride_d256"])
 def test_f32_copy_width_follows_base_and_strides(make, vector):
     """16-byte copies where the base and every outer stride of an axis
     longer than 1 are on 16 bytes, 4-byte copies elsewhere; never a
@@ -124,6 +130,19 @@ def test_f32_query_tile_fills_the_card(batch, heads, sq, tile):
     assert f32_query_tile(batch, heads, sq, H100_SMS) == tile
 
 
+@pytest.mark.parametrize("batch,heads,sq", [
+    (1, 16, 4096),          # the recurrentgemma-9b layer: 512 blocks at 128
+    (1, 132, 128),          # one 128-row tile on every SM
+    (1, 2, 300),            # a small grid
+])
+def test_f32_query_tile_is_64_rows_at_head_dim_256(batch, heads, sq):
+    """At D = 256 a 128-row tile does not fit in shared memory: only the
+    64-row tile is built, whatever the grid."""
+    assert f32_query_tiles(256) == (64,)
+    assert f32_query_tiles(128) == F32_QUERY_TILES
+    assert f32_query_tile(batch, heads, sq, H100_SMS, 256) == 64
+
+
 def test_copied_operand_keeps_the_values():
     x = torch.arange(2 * 3 * 5 * 17, dtype=torch.float32).view(2, 3, 5, 17)
     t = x.bfloat16()[..., 1:]
@@ -143,7 +162,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(got, ref.flash_attention(q, k, v, causal=True))
 
 
-@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("d", [32, 96, 192])
 def test_head_dim_outside_the_kernels_raises(d):
     assert d not in HEAD_DIMS
     q, kv = _meta(1, 4, 64, d), _meta(1, 2, 64, d)

@@ -23,14 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.configs import get_config as jget_config
 from repro.configs import get_smoke_config as jget_smoke
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import pallas_flash_attention
 from repro.models import Model as JModel
 from repro.models import layers as jlayers
-from repro_torch.configs import (ARCHS, ModelConfig, get_config,
-                                 get_smoke_config)
+from repro_torch.configs import (ARCHS, SHAPES, ModelConfig, get_config,
+                                 get_smoke_config, list_archs,
+                                 shape_applicable)
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import KERNELS, ops
 from repro_torch.kernels.flash_attention import flash_attention
@@ -147,17 +149,21 @@ def test_flash_attention_rejects_bad_inputs():
 # configs and layers
 # ----------------------------------------------------------------------------
 def test_configs_are_copies_of_the_jax_configs():
-    assert ARCHS == (ARCH, "llama3-8b", "qwen1.5-32b", "nemotron-4-340b")
+    assert ARCHS == tuple(jconfigs.list_archs())
+    assert list_archs() == jconfigs.list_archs() and SHAPES == jconfigs.SHAPES
     for arch in ARCHS:
         for ours, theirs in ((get_config(arch), jget_config(arch)),
                              (get_smoke_config(arch), jget_smoke(arch))):
             assert isinstance(ours, ModelConfig)
             assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
             assert ours.param_count() == theirs.param_count()
+            for shape in SHAPES:
+                assert shape_applicable(ours, shape) == \
+                    jconfigs.shape_applicable(theirs, shape)
     assert get_config(ARCH).dtype() == torch.bfloat16
     assert get_smoke_config(ARCH).dtype() == torch.float32
     with pytest.raises(KeyError, match="the port runs"):
-        get_config("mamba2-130m")
+        get_config("foo")
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
@@ -251,8 +257,8 @@ def test_init_matches_the_jax_parameter_shapes():
 
 
 def test_model_rejects_other_families_and_impls():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        Model(dataclasses.replace(get_smoke_config(ARCH), family="moe"),
+    with pytest.raises(ValueError, match="family 'foo'"):
+        Model(dataclasses.replace(get_smoke_config(ARCH), family="foo"),
               device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         Model(get_smoke_config(ARCH), attn_impl="pallas", device="cpu")

@@ -503,8 +503,8 @@ def test_model_loss_and_train_input_specs():
                              SyntheticLM(cfg, batch=2, seq=8).batch_at(0))
     assert loss.dtype == torch.float32 and loss.shape == ()
     assert abs(float(loss) - np.log(cfg.vocab_size)) < 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        train_input_specs(dataclasses.replace(cfg, family="moe"), 1, 1)
+    with pytest.raises(ValueError, match="family 'foo'"):
+        train_input_specs(dataclasses.replace(cfg, family="foo"), 1, 1)
 
 
 def test_launch_train_runs_and_restores(tmp_path, capsys):

@@ -29,6 +29,13 @@ Then one full-width qwen3-1.7b train step (``chip_smoke.TRAIN_B`` x
 "full"), and its two halves alone: ``loss_and_grads`` (forward, the
 recompute and the backward) and ``adamw.update``.
 
+Then each family phase's bf16 prefill (``chip_smoke.FAMILY_PHASES``:
+phi-3.5-moe at 16 layers, mamba2-130m, recurrentgemma-9b, whisper-tiny,
+qwen2-vl-2b at their published widths, random weights from seed 0,
+``attn_impl="kernel"``), built by ``chip_smoke.family_config`` and
+``chip_smoke.family_batch``, each freed before the next.
+``--only families`` runs those rows alone.
+
 Serve rows also give the wall a step (``ms_a_step``). The last line is
 one JSON object with the same numbers. Needs a CUDA card; exits with
 code 2 without one.
@@ -109,7 +116,29 @@ def _phase(name: str, fn, host: bool = False, steps: int = 0) -> dict:
     return row
 
 
-def main() -> int:
+def family_rows(dev) -> list:
+    """One row for each family phase's bf16 prefill."""
+    from repro_torch.models import Model
+    rows = []
+    for phase, (arch, b, s, _) in smoke.FAMILY_PHASES.items():
+        cfg = smoke.family_config(phase)
+        model = Model(cfg, attn_impl="kernel", device=dev)
+        params = model.init(0)
+        batch = smoke.family_batch(cfg, b, s, dev)
+        rows.append(_phase(f"{phase} {arch} ({cfg.n_layers} layers) prefill "
+                           f"{b}x{s} bf16",
+                           lambda: model.forward(params, batch)))
+        del model, params, batch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--only", choices=["families"], default=None,
+                    help="profile only these rows")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA device is available", file=sys.stderr)
         return 2
@@ -125,6 +154,10 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     build_all(KERNELS)
+    if args.only == "families":
+        rows = family_rows(torch.device("cuda", 0))
+        print(json.dumps({"card": card, "phases": rows}), flush=True)
+        return 0
     rng = np.random.default_rng(0)
     rows = []
     with ActorSystem(name="profile") as system:
@@ -255,6 +288,9 @@ def main() -> int:
     rows.append(_phase("train adamw.update qwen3-1.7b",
                        lambda: adamw.update(grads, state["opt"],
                                             state["params"], ocfg)))
+    del model, state, batch, grads
+    torch.cuda.empty_cache()
+    rows.extend(family_rows(dev))
     print(json.dumps({"card": card, "phases": rows}), flush=True)
     return 0
 
