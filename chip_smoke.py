@@ -95,6 +95,21 @@ port's main path through the entry points a user calls:
   window 2048, bf16 and f32) against SDPA with the window as a mask, and
   at the families' other launch shapes.
 
+* the rest of the distribution layer: B6 at head dim 192
+  (nemotron-4-340b's 1 x 96 (8 KV) x 2048^2 x 192 causal launch, bf16
+  over seeds 0-2 and f32, against SDPA); nemotron-4-340b's prefill at 4 of
+  its 96 layers at published widths (1 x 2048 bf16, 46.5 GB of weights),
+  B6 at D = 192 against the plain attention, with its wall, profiled busy
+  time, idle share and peak memory (under 80 GB); qwen3-1.7b's prefill
+  split over 2 stage actors (``dist.pipeline``), 4 microbatches of 1 x
+  2048 through a ``PipelineRunner`` of depth 2, each staged output held
+  to ``model.forward`` of the same microbatch, 112 B6 launches, the
+  activation crossing as a ``DeviceRef`` with no host transfer or spill,
+  ``emit="ref"`` results on the card, and the staged wall beside four
+  fused forwards; and ``compressed_psum`` of 2^24 f32 values over a
+  one-rank nccl group, bit for bit its own dequantized payload (one card:
+  a smoke only).
+
 Every B1, B3 and B6 kernel's registers and spill bytes are printed (none
 may spill), and ``cuobjdump -sass`` of the B1 and B6 libraries shows which
 kernels run on the tensor cores (``HGMMA``, fed by ``UTMALDG``) and which
@@ -109,9 +124,10 @@ Each main-path phase sets every kernel's launch counts to 0 before it and
 reads them after it; a kernel of the phase that was not launched fails
 the run, and so does a ``build_wah_index`` that is not one
 ``radix_histogram`` and four ``radix_onesweep`` launches. Any failure
-exits non-zero. The serve, mesh, train and family phases each print a
-JSON line of their readings; the last two lines are a JSON object with one entry
-per kernel and the JSON result line.
+exits non-zero. The serve, mesh, train, family and distribution-layer
+(``{"dist": ...}``) phases each print a JSON line of their readings; the
+run's total seconds follow, and the last two lines are a JSON object with
+one entry per kernel and the JSON result line.
 
 Without a CUDA device it exits with code 2 and prints no result.
 """
@@ -343,6 +359,23 @@ SSM_TRAIN_STEPS, SSM_TRAIN_B, SSM_TRAIN_S = 12, 8, 2048
 #: heads x 4096^2 x 256, causal, window 2048 (bf16; f32 on 64-row tiles)
 FA_D256 = (1, 16, 1, 4096, 4096, 256)
 FA_D256_WINDOW = 2048
+#: B6 at head dim 192: nemotron-4-340b's layer launch, 1 x 96 (8 KV) heads
+#: x 2048^2 x 192, causal (bf16 on key tiles of 64; f32 on 64-row tiles)
+FA_D192 = (1, 96, 8, 2048, 2048, 192)
+#: nemotron-4-340b's prefill at its published widths: NEMOTRON_LAYERS of its
+#: 96 layers (3.45 B parameters a layer, 9.44 B of embedding and head: 23.2 B,
+#: 46.5 GB in bf16; all 96 layers take 681 GB), 1 x NEMOTRON_S tokens, B6 at
+#: D = 192 once a layer. Its peak must stay under the card's 80 GB
+NEMOTRON_LAYERS, NEMOTRON_S = 4, 2048
+CARD_GB = 80.0
+#: the pipeline phase: qwen3-1.7b's prefill weights in PIPE_STAGES stage
+#: actors, PIPE_MICROBATCHES microbatches of 1 x PREFILL_S tokens (numpy
+#: seed PIPE_SEED) through a PipelineRunner of depth PIPE_DEPTH, each held
+#: to model.forward of the same microbatch
+PIPE_STAGES, PIPE_DEPTH, PIPE_MICROBATCHES, PIPE_SEED = 2, 2, 4, 21
+#: the collectives smoke: compressed_psum over a world of one (nccl) of
+#: 2^COLL_LOG2 f32 values
+COLL_LOG2 = 24
 #: the families' other B6 launches: (tag, shape, causal)
 FA_FAMILY_SHAPES = (
     ("phi-3.5-moe prefill", (1, 32, 8, 2048, 2048, 128), True),
@@ -1870,10 +1903,225 @@ def ssm_phase(run_phase, dev) -> dict:
     return out
 
 
+# -- B6 at head dim 192 and the distribution layer's phases ---------------------
+def d192_phase(dev) -> dict:
+    """B6 at head dim 192, nemotron-4-340b's layer launch FA_D192: bf16
+    within FA_BF16_STEPS of the plain version at every element over the
+    seeds FA_BF16_SEEDS, f32 (64-row tiles) within FA_F32_TOL; each timed
+    beside the plain version and SDPA (``is_causal``, ``enable_gqa``; f32
+    with TF32 off), against its bound."""
+    from repro_torch.kernels import FLASH_ATTENTION, ref
+    from repro_torch.kernels.build import device_sm_count
+    from repro_torch.kernels.flash_attention import (f32_query_tile,
+                                                     flash_attention)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        r = dict(shape=list(FA_D192), dtype=str(dtype), seeds=[])
+        for seed in FA_BF16_SEEDS if dtype == torch.bfloat16 else (0,):
+            q, k, v = attention_inputs(
+                FA_D192, dtype, torch.Generator(device=dev).manual_seed(seed),
+                dev)
+            before = FLASH_ATTENTION.launches
+            got = flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            check(FLASH_ATTENTION.launches == before + 1,
+                  f"flash_attention {dtype} D=192: not one launch")
+            want = ref.flash_attention(q, k, v, causal=True)
+            reading = dict(seed=seed, max_abs_err=max_abs_err(
+                got.float(), want.float()))
+            if dtype == torch.bfloat16:
+                reading["max_steps"] = float(bf16_steps(got, want).max())
+                check(reading["max_steps"] <= FA_BF16_STEPS,
+                      f"flash_attention bf16 D=192 seed {seed}: "
+                      f"{reading['max_steps']} bf16 steps from the plain "
+                      f"version > {FA_BF16_STEPS}")
+            else:
+                check(torch.allclose(got, want, rtol=FA_F32_TOL,
+                                     atol=FA_F32_TOL),
+                      f"flash_attention f32 D=192 disagrees beyond "
+                      f"{FA_F32_TOL}")
+            r["seeds"].append(reading)
+            del q, k, v, got, want
+        q, k, v = attention_inputs(
+            FA_D192, dtype, torch.Generator(device=dev).manual_seed(0), dev)
+        r.update(
+            max_abs_err=max(x["max_abs_err"] for x in r["seeds"]),
+            ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 10),
+            plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v,
+                                                         causal=True), 3),
+            bound_ms=attention_bound_ms(q, k, v, True),
+            bound_by="operations",
+            library_ms=cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 10),
+            library="F.scaled_dot_product_attention(is_causal=True, "
+                    "enable_gqa=True)" + (", f32 (TF32 off)"
+                                         if dtype == torch.float32 else ""))
+        if dtype == torch.float32:
+            r["query_tile"] = f32_query_tile(FA_D192[0], FA_D192[1],
+                                             FA_D192[3],
+                                             device_sm_count(dev.index), 192)
+        out["bf16" if dtype == torch.bfloat16 else "f32"] = r
+        log(f"flash_attention {dtype} causal D=192 1x96(8)x2048^2: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_ms'] / r['ms']:.3f} of it reached); max_abs_err "
+            f"{r['max_abs_err']}" + (
+                f", {max(x['max_steps'] for x in r['seeds'])} bf16 steps at "
+                f"most over seeds {list(FA_BF16_SEEDS)}"
+                if dtype == torch.bfloat16 else
+                f" (tol {FA_F32_TOL}), {r['query_tile']}-row tiles"))
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def nemotron_phase(run_phase, dev) -> dict:
+    """nemotron-4-340b at NEMOTRON_LAYERS of its 96 layers, published
+    widths, random bf16 weights from seed 0, 1 x NEMOTRON_S tokens: B6 at
+    D = 192 once a layer against the plain attention under the prefill
+    gates; its wall, profiled busy time, idle share and peak memory, which
+    must stay under CARD_GB."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("nemotron-4-340b"),
+                              n_layers=NEMOTRON_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, attn_impl="kernel", device=dev)
+    params = model.init(0)
+    batch = family_batch(cfg, 1, NEMOTRON_S, dev)
+    name = (f"nemotron-4-340b ({cfg.n_layers} of 96 layers) prefill "
+            f"1x{NEMOTRON_S} bf16")
+    model.forward(params, batch)                       # warm up
+    t0 = time.perf_counter()
+    logits, _ = run_phase(name, ["flash_attention"],
+                          lambda: model.forward(params, batch),
+                          {"flash_attention_bf16": cfg.n_layers})
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = profiled_busy_ms(lambda: model.forward(params, batch))
+    plain, _ = Model(cfg, attn_impl="ref", device=dev).forward(params, batch)
+    check(logits.shape == (1, NEMOTRON_S, cfg.vocab_size),
+          f"{name}: logits of shape {tuple(logits.shape)}")
+    out = prefill_gates(name, logits, plain)
+    out.update(layers=cfg.n_layers, head_dim=cfg.resolved_head_dim,
+               tokens=NEMOTRON_S, flash_attention_launches=cfg.n_layers,
+               wall_ms=wall, device_busy_ms=busy,
+               idle_share=max(0.0, 1.0 - busy / wall),
+               weight_gb=param_bytes(params) / 1e9,
+               params=sum(p.numel() for p in params.parameters()),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{name}: {out['params']} parameters ({out['weight_gb']:.2f} GB), "
+        f"forward wall {wall:.3f} ms, device busy {busy:.3f} ms (profiled), "
+        f"idle share {out['idle_share']:.4f}, peak {out['peak_gb']:.2f} GB")
+    check(out["peak_gb"] < CARD_GB, f"{name}: peak {out['peak_gb']:.2f} GB "
+          f"is not under {CARD_GB} GB")
+    return out
+
+
+def pipeline_phase(run_phase, model, params, dev) -> dict:
+    """qwen3-1.7b's prefill weights in PIPE_STAGES stage actors
+    (``make_layer_stage_actors``), PIPE_MICROBATCHES microbatches of 1 x
+    PREFILL_S tokens through a ``PipelineRunner`` of depth PIPE_DEPTH with
+    ``emit="ref"``: B6 launched once a layer a microbatch, no host transfer
+    or spill of the activation, the results on the card and each under the
+    prefill gates against ``model.forward`` of the same microbatch (the
+    same ops in the same order: a difference of 0 is expected); the staged
+    wall beside PIPE_MICROBATCHES fused forwards, a reading."""
+    from repro_torch.core import ActorSystem, DeviceRef
+    from repro_torch.core.memref import registry
+    from repro_torch.dist.pipeline import (PipelineRunner,
+                                           make_layer_stage_actors)
+    cfg = model.cfg
+    rng = np.random.default_rng(PIPE_SEED)
+    mbs = [rng.integers(0, cfg.vocab_size, (1, PREFILL_S))
+           for _ in range(PIPE_MICROBATCHES)]
+    name = (f"pipeline qwen3-1.7b {PIPE_STAGES} stages, {PIPE_MICROBATCHES} "
+            f"x 1x{PREFILL_S} bf16, depth {PIPE_DEPTH}")
+    fused = [model.forward(params, {"tokens": mb})[0] for mb in mbs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for mb in mbs:
+        model.forward(params, {"tokens": mb})
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    with ActorSystem(name="pipeline") as system:
+        runner = PipelineRunner(system, make_layer_stage_actors(
+            system, model, params, n_stages=PIPE_STAGES), depth=PIPE_DEPTH)
+        runner.run(mbs[:1])                            # warm up
+        before = registry.stats()
+        t0 = time.perf_counter()
+        refs = run_phase(name, ["flash_attention"],
+                         lambda: runner.run(mbs, emit="ref"),
+                         {"flash_attention_bf16":
+                          cfg.n_layers * PIPE_MICROBATCHES})
+        staged_ms = (time.perf_counter() - t0) * 1e3
+        after = registry.stats()
+    moved = {k: after[k] - before[k] for k in ("transfers", "spills")}
+    check(moved == {"transfers": 0, "spills": 0},
+          f"{name}: the activation moved through the host: {moved}")
+    gates, diffs = [], []
+    for i, (ref, want) in enumerate(zip(refs, fused)):
+        check(isinstance(ref, DeviceRef) and ref.device == dev,
+              f"{name}: microbatch {i} came back as {type(ref).__name__} on "
+              f"{getattr(ref, 'device', None)}")
+        got = ref.array
+        diffs.append(max_abs_err(got.float(), want.float()))
+        gates.append(prefill_gates(f"{name}, microbatch {i}", got, want))
+        ref.release()
+    out = dict(stages=PIPE_STAGES, depth=PIPE_DEPTH,
+               microbatches=PIPE_MICROBATCHES, tokens=PREFILL_S,
+               flash_attention_launches=cfg.n_layers * PIPE_MICROBATCHES,
+               max_abs_diff=max(diffs), gates=gates, staged_ms=staged_ms,
+               fused_ms=fused_ms, **moved)
+    log(f"{name}: staged logits against the fused forward: max |diff| "
+        f"{out['max_abs_diff']} (0 expected: the same ops in the same "
+        f"order); staged wall {staged_ms:.3f} ms, {PIPE_MICROBATCHES} fused "
+        f"forwards {fused_ms:.3f} ms; transfers and spills {moved}")
+    del fused, refs
+    return out
+
+
+def collectives_phase(dev) -> dict:
+    """``compressed_psum`` and ``tree_psum_with_error_feedback`` over a
+    world of one on nccl (one card: a smoke only). The sum of one rank is
+    its own dequantized payload, bit for bit; the mean the same, and the
+    new error the residual."""
+    import torch.distributed as dist
+    from repro_torch.dist.collectives import (_quantize, compressed_psum,
+                                              tree_psum_with_error_feedback)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        x = torch.randn(1 << COLL_LOG2, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        deq = _quantize(x)[2]
+        got = compressed_psum(x)
+        check(torch.equal(got.view(torch.int32), deq.view(torch.int32)),
+              "compressed_psum over one rank differs from its dequantized "
+              "payload")
+        mean, err = tree_psum_with_error_feedback({"g": x},
+                                                  {"g": torch.zeros_like(x)})
+        check(torch.equal(mean["g"], deq) and torch.equal(err["g"], x - deq),
+              "tree_psum_with_error_feedback over one rank: the mean is "
+              "not the payload or the error not the residual")
+        out = dict(n=x.numel(), backend=dist.get_backend(),
+                   world=dist.get_world_size(),
+                   max_abs_err=max_abs_err(got, x),
+                   ms=cuda_ms(lambda: compressed_psum(x), 10))
+    finally:
+        dist.destroy_process_group()
+    log(f"compressed_psum 2^{COLL_LOG2} f32 over a world of 1 (nccl): bit "
+        f"for bit its dequantized payload, {out['ms']:.4f} ms a call; "
+        f"quantization error {out['max_abs_err']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
 
     import dataclasses
 
@@ -1950,6 +2198,14 @@ def main() -> int:
                 check(counts["FFMA"] > 0 and not (counts["HGMMA"] or
                                                   counts["HMMA"]),
                       f"{fn} is not FFMA-only math")
+
+    fa_sass = sass[FLASH_ATTENTION.name]
+    d192_tc = [fn for fn in fa_sass
+               if "flash_attention_tc_kernelILi192E" in fn]
+    check(len(d192_tc) == 1 and fa_sass[d192_tc[0]]["HGMMA"] > 0,
+          f"no bf16 D = 192 kernel with HGMMA among {list(fa_sass)}")
+    log(f"sass flash_attention bf16 D = 192 ({d192_tc[0]}): "
+        f"{fa_sass[d192_tc[0]]}")
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -2392,6 +2648,7 @@ def main() -> int:
         del q, k, v
     rows["flash_attention"]["d256"] = d256
     del fa_mask
+    rows["flash_attention"]["d192"] = d192_phase(dev)
     # the families' other bf16 launch shapes
     family_shapes = []
     for tag, shape, causal in FA_FAMILY_SHAPES:
@@ -2591,6 +2848,9 @@ def main() -> int:
     prefill_gates("qwen3-1.7b prefill bf16", logits, plain)
     del logits, plain
     torch.cuda.empty_cache()
+    dist_layer = {"card": card,
+                  "pipeline": pipeline_phase(run_phase, model, params, dev)}
+    torch.cuda.empty_cache()
 
     # -- serving with the prefill's model and weights ----------------------------
     serve = {"card": card}
@@ -2646,6 +2906,12 @@ def main() -> int:
         log(f"family phase {phase}: {families[phase]['phase_s']:.1f} s")
     print(json.dumps({"families": families}), flush=True)
 
+    # -- the distribution layer: nemotron-4-340b at D = 192, collectives --------
+    dist_layer["nemotron"] = nemotron_phase(run_phase, dev)
+    torch.cuda.empty_cache()
+    dist_layer["collectives"] = collectives_phase(dev)
+    print(json.dumps({"dist": dist_layer}), flush=True)
+
     entries = []
     for kname, row in rows.items():
         k = row.pop("kernel")
@@ -2658,6 +2924,7 @@ def main() -> int:
         if kname in sass:
             entry["sass"] = sass[kname]
         entries.append(entry)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ The train state is the JAX package's pytree ``{"params", "opt": {"m",
 frozen ``ParamTree``. Gradients come from ``torch.autograd.grad`` over
 detached copies of the parameter leaves that require grad; nothing
 accumulates in ``.grad``. Gradient accumulation loops over microbatches
-with ``accum_dtype`` sums, as the JAX ``lax.scan`` does. The JAX step's
-``grad_shardings`` has no counterpart on one card (ROADMAP A10).
+with ``accum_dtype`` sums, as the JAX ``lax.scan`` does. ``grad_shardings``
+pins ``DTensor`` gradients to their placements before the optimizer, as
+the JAX step constrains its gradients.
 """
 from __future__ import annotations
 
@@ -99,21 +100,36 @@ def loss_and_grads(model, params, batch: Dict[str, Any], *,
     return loss, {k: v / grad_accum for k, v in parts_sum.items()}, grads
 
 
+def _pin(grad: torch.Tensor, placements) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    if not isinstance(grad, DTensor):
+        return grad
+    return grad.redistribute(grad.device_mesh, placements)
+
+
 def build_train_step(model, ocfg, *, grad_accum: int = 1,
                      lr_schedule: Optional[Callable] = None,
                      accum_dtype: str = "float32",
-                     presplit: bool = False) -> Callable:
+                     presplit: bool = False,
+                     grad_shardings=None) -> Callable:
     """One optimizer step, ``(state, batch) → (new state, metrics)``: loss
     and gradients (accumulated over ``grad_accum`` microbatches), global
     norm clip, AdamW update. ``metrics`` holds 0-d device tensors:
     ``loss``, ``ce``, ``aux`` and ``grad_norm``. ``batch`` may hold host
-    arrays; it goes to the model's device."""
+    arrays; it goes to the model's device.
+
+    ``grad_shardings``, a tree of DTensor placements matching the
+    parameters (``dist.sharding.placements`` of each spec), redistributes
+    each ``DTensor`` gradient to its placements before the optimizer; a
+    plain tensor is left as it is."""
 
     def train_step(state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
         loss, parts, grads = loss_and_grads(
             model, params, batch, grad_accum=grad_accum,
             accum_dtype=accum_dtype, presplit=presplit)
+        if grad_shardings is not None:
+            grads = pytree.tree_map(_pin, grads, grad_shardings)
         lr_scale = lr_schedule(step) if lr_schedule is not None else 1.0
         with torch.no_grad():
             new_params, new_opt, opt_metrics = adamw.update(

@@ -28,7 +28,7 @@
 //     are launched last-first, so under the causal mask the longest run
 //     first and do not form a tail;
 //   * warpgroup 2 is the producer: one thread loads the Q tile once and
-//     then K and V tiles of 128 keys (64 at D = 256) by TMA (rank-4
+//     then K and V tiles of 128 keys (64 at D = 192 and 256) by TMA (rank-4
 //     tensor maps over the tensors' own strides, 128-byte swizzle, 32-byte
 //     where a row of D is narrower; rows past Skv or Sq come back as
 //     zeros) into a two-stage
@@ -55,7 +55,8 @@
 //     last-first; the tile is 128 rows, or 64 where a grid of 128-row
 //     tiles would not give every SM a block (the wrapper's
 //     f32_query_tile: the 1 x 16-head x 512 f32 prefill), and always 64
-//     at D = 256, where a 128-row tile does not fit in shared memory;
+//     at D = 192 and 256, where a 128-row tile does not fit in shared
+//     memory;
 //   * Q, K and V stay as they lie in memory, rows of D at a pitch of D + 4
 //     floats: both operands of S = Q K^T run along D, so no transposing
 //     scatter. Q is copied once; K and V tiles of 64 keys by cp.async,
@@ -380,7 +381,8 @@ int launch_d(const Params& p, int batch, cudaStream_t stream) {
 
 // The 128-row tile is built where it fits in an SM's 227 KB: at D = 256
 // its Q and P would take 170 KB beside 130 KB of K and V, so D = 256 has
-// the 64-row tile only (Q 65 KB, K and V 130 KB, P 20 KB: 215 KB).
+// the 64-row tile only (Q 65 KB, K and V 130 KB, P 20 KB: 215 KB); at
+// D = 192 the 128-row tile would take 242 KB, the 64-row one 171 KB.
 template <int D>
 constexpr bool kLargeTile = D <= 128;
 
@@ -430,10 +432,13 @@ constexpr int CONSUMER_REGS = 232;
 
 template <int D>
 struct Cfg {
-  // Keys a tile: 128, or 64 at D = 256, where the Q tile (64 KB) and a
-  // two-stage ring of 128-key K and V tiles (256 KB) would not fit in the
-  // 227 KB of an SM; at 64 keys the ring is 128 KB. A consumer thread then
-  // holds 128 f32 of O, 32 of S and 32 registers of P's two bf16 halves.
+  // Keys a tile: 128, or 64 above D = 128, where the Q tile (64 KB at
+  // D = 256, 48 KB at 192) and a two-stage ring of 128-key K and V tiles
+  // (256 KB, 192 KB) would not fit in the 227 KB of an SM; at 64 keys the
+  // ring is 128 KB (96 KB). A consumer thread then holds D / 2 f32 of O
+  // (128 at D = 256, 96 at 192), 32 of S and 32 registers of P's two bf16
+  // halves. O += P V takes N = D in one wgmma (m64n256k16, m64n192k16),
+  // V's 64-column panels BK * SW bytes apart.
   static constexpr int BK = D > 128 ? 64 : 128;
   // A row of a shared-memory panel is one swizzle span: 128 bytes (64
   // bf16), or the whole row of D where that is narrower (D = 16: 32 B).
@@ -534,6 +539,48 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// D[64xN] += A[64x16] B[16xN]: A from registers, B from shared memory
+// (MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
@@ -931,6 +978,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
     case 16: return simt::launch_tile<16>(p, batch, bq, s);  // CPU-test config
     case 64: return simt::launch_tile<64>(p, batch, bq, s);
     case 128: return simt::launch_tile<128>(p, batch, bq, s);  // qwen3-1.7b
+    case 192: return simt::launch_tile<192>(p, batch, bq, s);  // nemotron-4
     case 256: return simt::launch_tile<256>(p, batch, bq, s);  // recurrentgemma
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -954,6 +1002,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     case 128:
       return tc::launch_d<128>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
                                skv, causal, window, scale, s);
+    case 192:
+      return tc::launch_d<192>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
+                               skv, causal, window, scale, s);
     case 256:
       return tc::launch_d<256>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
                                skv, causal, window, scale, s);
@@ -970,19 +1021,21 @@ extern "C" int flash_attention_bf16_info(int d, int* regs, int* local_bytes,
     case 16: return tc::info_d<16>(regs, local_bytes, smem_bytes);
     case 64: return tc::info_d<64>(regs, local_bytes, smem_bytes);
     case 128: return tc::info_d<128>(regs, local_bytes, smem_bytes);
+    case 192: return tc::info_d<192>(regs, local_bytes, smem_bytes);
     case 256: return tc::info_d<256>(regs, local_bytes, smem_bytes);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The same for the f32 kernel with query tile bq (128 or 64; 64 only at
-// D = 256).
+// D = 192 and 256).
 extern "C" int flash_attention_f32_info(int d, int bq, int* regs,
                                         int* local_bytes, int* smem_bytes) {
   switch (d) {
     case 16: return simt::info_tile<16>(bq, regs, local_bytes, smem_bytes);
     case 64: return simt::info_tile<64>(bq, regs, local_bytes, smem_bytes);
     case 128: return simt::info_tile<128>(bq, regs, local_bytes, smem_bytes);
+    case 192: return simt::info_tile<192>(bq, regs, local_bytes, smem_bytes);
     case 256: return simt::info_tile<256>(bq, regs, local_bytes, smem_bytes);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

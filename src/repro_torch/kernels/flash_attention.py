@@ -10,13 +10,13 @@ softmax in registers. f32 runs as IEEE f32 on the SIMT FMA pipes: one
 copied by ``cp.async`` under the FMAs, 8 rows x 4 keys of S and 8 rows x
 8 columns of O a thread in registers, the softmax in registers. Its
 query tile is 128 rows, or 64 where a grid of 128-row tiles would leave
-SMs without a block, and always 64 at head dim 256, where a 128-row tile
-does not fit in shared memory (:func:`f32_query_tile`); bf16 takes key
-tiles of 64 at head dim 256 for the same reason. Both take GQA by indexing
-the K/V head, causal and local-window masks on right-aligned positions,
-and skip the key tiles outside the masks. :func:`flash_attention` takes
-the plain version for CPU tensors and launches a kernel for CUDA
-tensors; there is no other path.
+SMs without a block, and always 64 at head dims 192 and 256, where a
+128-row tile does not fit in shared memory (:func:`f32_query_tile`);
+bf16 takes key tiles of 64 at those head dims for the same reason. Both
+take GQA by indexing the K/V head, causal and local-window masks on
+right-aligned positions, and skip the key tiles outside the masks.
+:func:`flash_attention` takes the plain version for CPU tensors and
+launches a kernel for CUDA tensors; there is no other path.
 
 TMA reads a tensor where it lies only if its base address and outer
 strides are multiples of 16 bytes; :func:`kernel_operand` decides, per
@@ -54,14 +54,14 @@ _INFO_ARGS = (ctypes.c_int, ctypes.POINTER(ctypes.c_int),
 _F32_INFO_ARGS = (ctypes.c_int,) + _INFO_ARGS
 _DTYPES = (torch.float32, torch.bfloat16)
 #: head dims the kernels are instantiated for: the smoke configs' 16,
-#: whisper-tiny's 64, the 128 of the dense, moe and vlm configs, and
-#: recurrentgemma-9b's 256
-HEAD_DIMS = (16, 64, 128, 256)
+#: whisper-tiny's 64, the 128 of the dense, moe and vlm configs,
+#: nemotron-4-340b's 192 and recurrentgemma-9b's 256
+HEAD_DIMS = (16, 64, 128, 192, 256)
 #: f32 query tiles (rows a block): the large tile, and the one for grids
 #: that would leave SMs without a block
 F32_QUERY_TILES = (128, 64)
-#: the largest head dim with the large f32 tile: at 256 its Q, K, V and P
-#: take 300 KB of shared memory, more than an SM has
+#: the largest head dim with the large f32 tile: at 192 its Q, K, V and P
+#: take 242 KB of shared memory, at 256 300 KB, more than an SM has
 F32_LARGE_TILE_MAX_D = 128
 #: TMA's alignment of a tensor's base address and strides, in bytes, and
 #: that of the f32 kernel's 16-byte copies

@@ -107,6 +107,10 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope
         k = apply_norm(p["k_norm"], k, "rmsnorm")
     if rope is not None:
         q, k = rotate(q, *rope), rotate(k, *rope)
+    from ..dist import api as dist_api
+    q = dist_api.hint_named(q, "attn_q")
+    k = dist_api.hint_named(k, "attn_kv")
+    v = dist_api.hint_named(v, "attn_kv")
     return q, k, v
 
 

@@ -200,6 +200,8 @@ def apply_mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = torch.square(F.relu(x @ p["w_up"]))
     else:
         raise ValueError(f"unknown MLP {kind!r}; expected one of {MLP_KINDS}")
+    from ..dist import api as dist_api
+    h = dist_api.hint_named(h, "mlp_hidden")
     return h @ p["w_out"]
 
 

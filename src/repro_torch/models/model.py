@@ -1,8 +1,8 @@
 """cfg-bound model facade — the port of the JAX package's
-``repro/models/model.py``: ``init``, ``loss`` (training), ``forward``
-(prefill), and the serving half, ``init_cache`` and ``decode_step``, over
-the decoder-only families (``transformer``) and the encoder–decoder one
-(``encdec``).
+``repro/models/model.py``: ``init`` and ``param_shapes``, ``loss``
+(training), ``forward`` (prefill), and the serving half, ``init_cache``
+and ``decode_step``, over the decoder-only families (``transformer``)
+and the encoder–decoder one (``encdec``).
 
 A ``Model`` is bound to a device: the current CUDA device unless the
 caller names another (``LookupError`` without a card), like every entry
@@ -45,12 +45,21 @@ class Model:
         """Random parameters on the model's device from a seeded
         ``torch.Generator`` there."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        return self._init(gen, self.device)
+
+    def param_shapes(self) -> ParamTree:
+        """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+        storage, no draw (the JAX package's ``eval_shape`` of ``init``).
+        A generator cannot live on ``meta``, and nothing is drawn there."""
+        return self._init(None, torch.device("meta"))
+
+    def _init(self, gen: Optional[torch.Generator], device) -> ParamTree:
         if self.cfg.family == "encdec":
             return encdec.init_params(gen, self.cfg, self.vocab,
                                       max_dec_len=self.max_dec_len,
-                                      device=self.device)
+                                      device=device)
         return transformer.init_params(gen, self.cfg, self.vocab,
-                                       device=self.device)
+                                       device=device)
 
     def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: as_device_array(v, device=self.device)

@@ -41,8 +41,9 @@ from .layers import (ParamTree, apply_mlp, apply_norm, init_embedding,
                      init_mlp, init_norm)
 
 __all__ = ["REMAT_POLICIES", "apply_remat", "layer_groups", "layer_kinds",
-           "init_params", "embed_inputs", "default_positions", "forward",
-           "loss_fn", "cross_entropy", "init_cache", "decode_step"]
+           "unit_starts", "init_params", "embed_inputs", "default_positions",
+           "apply_layers", "forward", "loss_fn", "cross_entropy",
+           "init_cache", "decode_step"]
 
 REMAT_POLICIES = ("none", "full", "dots")
 
@@ -101,6 +102,13 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
     order: group by group, unit by unit."""
     return [kind for unit, count in layer_groups(cfg)
             for _ in range(count) for kind in unit]
+
+
+def unit_starts(cfg: ModelConfig) -> List[bool]:
+    """Whether each entry of ``params["layers"]`` begins a unit: where the
+    JAX package's scan body pins the residual stream (``dist.api.hint``)."""
+    return [i == 0 for unit, count in layer_groups(cfg)
+            for _ in range(count) for i in range(len(unit))]
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
@@ -190,6 +198,25 @@ def default_positions(cfg: ModelConfig, start: torch.Tensor, b: int, s: int
     return base.expand(3, b, s) if cfg.m_rope else base
 
 
+def apply_layers(layers, cfg: ModelConfig, x: torch.Tensor, positions,
+                 attn_impl: str, block_fn: Callable = _apply_block
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``layers``, ``(block params, kind, unit start)`` triples in
+    execution order, over the residual stream ``x`` → (x, the MoE layers'
+    aux loss summed, f32 0-d). The stream is pinned at each unit's start
+    (``dist.api.hint``, the identity outside a sharding context), where
+    the JAX package's scan body pins it."""
+    from ..dist import api as dist_api
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block, kind, start in layers:
+        if start:
+            x = dist_api.hint(x)
+        x, a = block_fn(block, cfg, kind, x, positions, attn_impl)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             vision_embeds: Optional[torch.Tensor] = None,
@@ -197,20 +224,17 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """tokens [B,S] → (logits [B,S,V], aux loss f32 0-d: the MoE layers'
     sum, else 0)."""
     b, s = tokens.shape
-    kinds = layer_kinds(cfg)
     if positions is None:
         positions = default_positions(
             cfg, torch.zeros((), dtype=torch.int64, device=tokens.device),
             b, s)
     x = embed_inputs(params, cfg, tokens, vision_embeds)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block_fn = _apply_block
     if torch.is_grad_enabled():
         block_fn = apply_remat(_apply_block, cfg.remat)
-    for block, kind in zip(params["layers"], kinds):
-        x, a = block_fn(block, cfg, kind, x, positions, attn_impl)
-        if a is not None:
-            aux = aux + a
+    x, aux = apply_layers(zip(params["layers"], layer_kinds(cfg),
+                              unit_starts(cfg)),
+                          cfg, x, positions, attn_impl, block_fn)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = x @ head.to(x.dtype)
@@ -233,8 +257,11 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """Mean of ``logsumexp`` minus the label logit, in f32. A gather picks
-    the label logit, the value JAX's one-hot select sums to."""
-    lf = logits.float()
+    the label logit, the value JAX's one-hot select sums to; the f32
+    logits are pinned to the vocab sharding (``dist.api.hint_vocab``), as
+    JAX pins them and its one-hot select."""
+    from ..dist import api as dist_api
+    lf = dist_api.hint_vocab(logits.float())
     lse = torch.logsumexp(lf, dim=-1)
     label_logit = lf.gather(-1, labels.long()[..., None])[..., 0]
     return (lse - label_logit).mean()

@@ -44,6 +44,8 @@ def test_port_imports_no_jax_and_no_repro():
         import repro_torch.configs.mamba2_130m, repro_torch.configs.qwen2_vl
         import repro_torch.configs.recurrentgemma_9b
         import repro_torch.configs.whisper_tiny, repro_torch.configs.wah_paper
+        import repro_torch.dist.api, repro_torch.dist.pipeline
+        import repro_torch.dist.sharding, repro_torch.launch.mesh
         bad = sorted(m for m in sys.modules
                      if m.startswith("jax") or m == "repro"
                      or m.startswith("repro.") or m.startswith("ml_dtypes"))

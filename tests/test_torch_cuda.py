@@ -408,6 +408,12 @@ def test_mandelbrot_kernel_is_bit_exact(cuda_device, height, width,
     (1, 16, 1, 384, 384, 256, True, None),     # D = 256, GQA 16:1
     (2, 4, 2, 201, 333, 256, True, None),      # D = 256, ragged Sq and Skv
     (1, 4, 4, 150, 270, 256, False, None),     # D = 256, not causal, Sq < Skv
+    (1, 2, 2, 256, 256, 192, True, None),      # D = 192, causal
+    (1, 2, 1, 520, 520, 192, True, 200),       # D = 192, window across tiles
+    (1, 12, 1, 384, 384, 192, True, None),     # D = 192, GQA 12:1
+    (1, 96, 8, 256, 256, 192, True, None),     # D = 192, nemotron-4's 96:8
+    (2, 4, 2, 201, 333, 192, True, None),      # D = 192, ragged Sq and Skv
+    (1, 4, 4, 150, 270, 192, False, None),     # D = 192, not causal, Sq < Skv
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)])
@@ -586,6 +592,32 @@ def test_smoke_model_prefill_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert _launches()["flash_attention"] - before == cfg.n_layers
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_two_stage_pipeline_equals_the_fused_forward(cuda_device):
+    """The 2-layer f32 smoke model in 2 stage actors on the card: the
+    staged logits equal the fused forward's, B6 launches once a layer a
+    microbatch, and the activation crosses as a DeviceRef on the card."""
+    from repro_torch.dist.pipeline import (PipelineRunner,
+                                           make_layer_stage_actors)
+    cfg = get_smoke_config("qwen3-1.7b")
+    model = Model(cfg, attn_impl="kernel", device=cuda_device)
+    params = model.init(0)
+    rng = np.random.default_rng(8)
+    mbs = [rng.integers(0, cfg.vocab_size, (2, 100)) for _ in range(3)]
+    before, traffic = _launches()["flash_attention"], registry.stats()
+    with ActorSystem(max_workers=4) as system:
+        runner = PipelineRunner(system, make_layer_stage_actors(
+            system, model, params, n_stages=2))
+        refs = runner.run(mbs, emit="ref")
+    torch.cuda.synchronize()
+    assert _launches()["flash_attention"] - before == cfg.n_layers * len(mbs)
+    assert (registry.stats()["transfers"], registry.stats()["spills"]) == \
+        (traffic["transfers"], traffic["spills"])
+    for mb, ref in zip(mbs, refs):
+        assert isinstance(ref, DeviceRef) and ref.device == cuda_device
+        want, _ = model.forward(params, {"tokens": mb})
+        assert torch.equal(ref.array, want)
 
 
 # ----------------------------------------------------------------------------

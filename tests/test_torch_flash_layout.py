@@ -48,9 +48,11 @@ def _bshd(b, s, h, d, dtype=torch.bfloat16):
     lambda: _meta(2, 16, 300, 128)[..., 8:72],     # base 16 B in
     lambda: _bshd(1, 4096, 16, 256),               # recurrentgemma-9b's q
     lambda: _bshd(1, 4096, 1, 256),                # its one K/V head
+    lambda: _bshd(1, 2048, 96, 192),               # nemotron-4-340b's q
+    lambda: _bshd(1, 2048, 8, 192),                # its 8 K/V heads
 ], ids=["contiguous", "bshd", "bshd_d16", "single_row", "length_one_axis",
         "padded_rows", "row_offset", "column_slice", "bshd_d256",
-        "bshd_d256_mqa"])
+        "bshd_d256_mqa", "bshd_d192", "bshd_d192_gqa"])
 def test_tma_ready_tensors_pass_through(make):
     t = make()
     assert tma_ready(t)
@@ -143,6 +145,14 @@ def test_f32_query_tile_is_64_rows_at_head_dim_256(batch, heads, sq):
     assert f32_query_tile(batch, heads, sq, H100_SMS, 256) == 64
 
 
+def test_f32_query_tile_is_64_rows_at_head_dim_192():
+    """At D = 192 a 128-row tile would take 242 KB of shared memory: only
+    the 64-row tile is built, also for nemotron-4-340b's 1 x 96-head x
+    2048 layer, whose 128-row grid would fill the card."""
+    assert f32_query_tiles(192) == (64,)
+    assert f32_query_tile(1, 96, 2048, H100_SMS, 192) == 64
+
+
 def test_copied_operand_keeps_the_values():
     x = torch.arange(2 * 3 * 5 * 17, dtype=torch.float32).view(2, 3, 5, 17)
     t = x.bfloat16()[..., 1:]
@@ -162,7 +172,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(got, ref.flash_attention(q, k, v, causal=True))
 
 
-@pytest.mark.parametrize("d", [32, 96, 192])
+@pytest.mark.parametrize("d", [32, 96, 160])
 def test_head_dim_outside_the_kernels_raises(d):
     assert d not in HEAD_DIMS
     q, kv = _meta(1, 4, 64, d), _meta(1, 2, 64, d)

@@ -36,6 +36,16 @@ qwen2-vl-2b at their published widths, random weights from seed 0,
 ``chip_smoke.family_batch``, each freed before the next.
 ``--only families`` runs those rows alone.
 
+Then the distribution layer's rows (``--only dist`` runs them alone):
+nemotron-4-340b's bf16 prefill at ``chip_smoke.NEMOTRON_LAYERS`` of its
+96 layers (1 x ``chip_smoke.NEMOTRON_S``), and qwen3-1.7b's bf16 prefill
+weights in ``chip_smoke.PIPE_STAGES`` stage actors, the
+``chip_smoke.PIPE_MICROBATCHES`` microbatches of 1 x
+``chip_smoke.PREFILL_S`` tokens through a ``PipelineRunner`` of depth
+``chip_smoke.PIPE_DEPTH``, beside the same microbatches through the fused
+forward one after another. The profiler sees the stage actors' device
+work, not their threads' host calls.
+
 Serve rows also give the wall a step (``ms_a_step``). The last line is
 one JSON object with the same numbers. Needs a CUDA card; exits with
 code 2 without one.
@@ -133,10 +143,51 @@ def family_rows(dev) -> list:
     return rows
 
 
+def dist_rows(dev) -> list:
+    """The nemotron-4-340b prefill row, then the staged and fused rows of
+    the pipeline phase."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import ActorSystem
+    from repro_torch.dist.pipeline import (PipelineRunner,
+                                           make_layer_stage_actors)
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("nemotron-4-340b"),
+                              n_layers=smoke.NEMOTRON_LAYERS)
+    model = Model(cfg, attn_impl="kernel", device=dev)
+    params = model.init(0)
+    batch = smoke.family_batch(cfg, 1, smoke.NEMOTRON_S, dev)
+    rows = [_phase(f"nemotron-4-340b ({cfg.n_layers} of 96 layers) prefill "
+                   f"1x{smoke.NEMOTRON_S} bf16",
+                   lambda: model.forward(params, batch), host=True)]
+    del model, params, batch
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-1.7b")
+    model = Model(cfg, attn_impl="kernel", device=dev)
+    params = model.init(0)
+    rng = np.random.default_rng(smoke.PIPE_SEED)
+    mbs = [rng.integers(0, cfg.vocab_size, (1, smoke.PREFILL_S))
+           for _ in range(smoke.PIPE_MICROBATCHES)]
+    tag = f"{smoke.PIPE_MICROBATCHES} x 1x{smoke.PREFILL_S} bf16"
+    with ActorSystem(name="profile_pipeline") as system:
+        runner = PipelineRunner(system, make_layer_stage_actors(
+            system, model, params, n_stages=smoke.PIPE_STAGES),
+            depth=smoke.PIPE_DEPTH)
+        rows.append(_phase(f"pipeline qwen3-1.7b {smoke.PIPE_STAGES} stages "
+                           f"depth {smoke.PIPE_DEPTH}, {tag}",
+                           lambda: runner.run(mbs)))
+    rows.append(_phase(f"qwen3-1.7b fused forward, {tag} one after another",
+                       lambda: [model.forward(params, {"tokens": mb})
+                                for mb in mbs], host=True))
+    del model, params
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--only", choices=["families"], default=None,
+    ap.add_argument("--only", choices=["families", "dist"], default=None,
                     help="profile only these rows")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -154,8 +205,9 @@ def main(argv=None) -> int:
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     build_all(KERNELS)
-    if args.only == "families":
-        rows = family_rows(torch.device("cuda", 0))
+    if args.only is not None:
+        rows_of = {"families": family_rows, "dist": dist_rows}[args.only]
+        rows = rows_of(torch.device("cuda", 0))
         print(json.dumps({"card": card, "phases": rows}), flush=True)
         return 0
     rng = np.random.default_rng(0)
@@ -291,6 +343,7 @@ def main(argv=None) -> int:
     del model, state, batch, grads
     torch.cuda.empty_cache()
     rows.extend(family_rows(dev))
+    rows.extend(dist_rows(dev))
     print(json.dumps({"card": card, "phases": rows}), flush=True)
     return 0
 
