@@ -110,6 +110,16 @@ port's main path through the entry points a user calls:
   one-rank nccl group, bit for bit its own dequantized payload (one card:
   a smoke only).
 
+* the roofline (``repro_torch.roofline``, ``launch.dryrun_lib``):
+  qwen3-1.7b at its published widths in bf16, the prefill at 2 x 2048 and
+  the train step at 8 x 512, counted by ``lower_cell`` on a 1 x 1 mesh of
+  ``meta`` DTensors in a spawned child and by the same counter over the
+  same step on the card's tensors (plain attention): FLOPs, bytes and
+  argument bytes must be equal. Each step's wall, profiled busy time,
+  MFU against 989 TFLOP/s and peak memory are read beside the roofline's
+  compute and memory times and its predicted peak of live bytes (the
+  prefill timed with B6, the train step with the plain attention).
+
 Every B1, B3 and B6 kernel's registers and spill bytes are printed (none
 may spill), and ``cuobjdump -sass`` of the B1 and B6 libraries shows which
 kernels run on the tensor cores (``HGMMA``, fed by ``UTMALDG``) and which
@@ -125,7 +135,8 @@ reads them after it; a kernel of the phase that was not launched fails
 the run, and so does a ``build_wah_index`` that is not one
 ``radix_histogram`` and four ``radix_onesweep`` launches. Any failure
 exits non-zero. The serve, mesh, train, family and distribution-layer
-(``{"dist": ...}``) phases each print a JSON line of their readings; the
+(``{"dist": ...}``) and roofline phases each print a JSON line of their
+readings; the
 run's total seconds follow, and the last two lines are a JSON object with
 one entry per kernel and the JSON result line.
 
@@ -147,11 +158,12 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 import torch  # noqa: E402
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FLOP/s
-#: outside the tensor cores, bf16 FLOP/s in the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
+#: H100 SXM peaks (NVIDIA data sheet, dense), from the port's roofline:
+#: HBM3 bytes/s, f32 FLOP/s outside the tensor cores, bf16 FLOP/s in the
+#: tensor cores, device memory
+from repro_torch.roofline.analysis import (  # noqa: E402
+    CARD_BYTES, F32_FLOPS, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_FLOPS)
 #: the f32 peak counts an FMA as two operations; a kernel that issues no
 #: FMA (B2) gets one operation per FMA slot
 F32_NON_FMA_OPS = F32_FLOPS / 2
@@ -367,7 +379,7 @@ FA_D192 = (1, 96, 8, 2048, 2048, 192)
 #: 46.5 GB in bf16; all 96 layers take 681 GB), 1 x NEMOTRON_S tokens, B6 at
 #: D = 192 once a layer. Its peak must stay under the card's 80 GB
 NEMOTRON_LAYERS, NEMOTRON_S = 4, 2048
-CARD_GB = 80.0
+CARD_GB = CARD_BYTES / 1e9
 #: the pipeline phase: qwen3-1.7b's prefill weights in PIPE_STAGES stage
 #: actors, PIPE_MICROBATCHES microbatches of 1 x PREFILL_S tokens (numpy
 #: seed PIPE_SEED) through a PipelineRunner of depth PIPE_DEPTH, each held
@@ -384,6 +396,17 @@ FA_FAMILY_SHAPES = (
     ("whisper-tiny decoder self", (8, 6, 6, 448, 448, 64), True),
     ("whisper-tiny cross", (8, 6, 6, 448, 1500, 64), False),
 )
+#: the roofline phase: qwen3-1.7b at its published widths in bf16, the
+#: prefill at PREFILL_B x PREFILL_S and the train step at TRAIN_B x TRAIN_S
+#: (configs.SHAPES entries: seq, global batch, kind), counted by
+#: launch.dryrun_lib.lower_cell on a 1 x 1 mesh of meta DTensors in a child
+#: process and by the same counter over the same step on the card's
+#: tensors, both with the plain attention the counter sees; the counts and
+#: the argument bytes must be equal, exactly. ROOF_REPS timed steps a kind
+ROOF_SHAPES = {"card_prefill": (PREFILL_S, PREFILL_B, "prefill"),
+               "card_train": (TRAIN_S, TRAIN_B, "train")}
+ROOF_PLAN = {"attn_impl": "ref"}
+ROOF_REPS = 5
 
 
 def log(msg: str) -> None:
@@ -2117,6 +2140,177 @@ def collectives_phase(dev) -> dict:
     return out
 
 
+def roofline_child(queue) -> None:
+    """The roofline phase's dry run: ``lower_cell`` of each ROOF_SHAPES
+    cell on a 1 x 1 mesh of a one-rank ``fake`` group, in a process of its
+    own (the group is process-wide, and the parent runs a nccl one)."""
+    import traceback
+    try:
+        from repro_torch import configs
+        from repro_torch.launch import dryrun_lib
+        from repro_torch.launch.dryrun import start_fake_group
+        from repro_torch.launch.mesh import make_mesh
+        start_fake_group(1)
+        configs.SHAPES.update(ROOF_SHAPES)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        out = {}
+        for shape in ROOF_SHAPES:
+            t0 = time.perf_counter()
+            out[shape] = dryrun_lib.lower_cell("qwen3-1.7b", shape, mesh,
+                                               "1x1", plan_overrides=ROOF_PLAN)
+            out[shape]["child_s"] = time.perf_counter() - t0
+        queue.put(("ok", out))
+    except BaseException:
+        queue.put(("error", traceback.format_exc()))
+        raise
+
+
+def wall_ms(fn, reps: int) -> list:
+    """The sorted host walls of ``reps`` calls of ``fn``, each ending in a
+    synchronize, in ms (one untimed call first)."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)
+
+
+def roofline_cell(run_phase, shape: str, meta_for, dev) -> dict:
+    """One ROOF_SHAPES cell on the card: the counter over the step on real
+    tensors (plain attention), the step's wall, profiled busy time, peak
+    memory and MFU (the prefill with B6, the train step with the plain
+    attention: B6 has no backward); then the counts held to the dry run's
+    report, ``meta_for(shape)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.roofline.analysis import model_flops_for
+    from repro_torch.roofline.counter import count
+    cfg = get_config("qwen3-1.7b")
+    seq, batch, kind = ROOF_SHAPES[shape]
+    name = f"roofline qwen3-1.7b {kind} {batch}x{seq} bf16"
+    base = torch.cuda.memory_allocated()
+    run, args, plan = dryrun_lib.device_cell(cfg, shape, dev,
+                                             plan_overrides=ROOF_PLAN)
+    allocated = torch.cuda.memory_allocated() - base
+    arg_bytes = dryrun_lib.argument_bytes(args)
+    run()                                   # warm up
+    torch.cuda.synchronize()
+    _, st = run_phase(f"{name} counted", [], lambda: count(
+        run, torch.device(dev).type, seq_dims={seq, 512, 1024, 2048}))
+    if kind == "prefill":
+        timed, _, _ = dryrun_lib.device_cell(
+            cfg, shape, dev, plan_overrides={"attn_impl": "kernel"})
+        attn = "kernel"
+    else:
+        timed, attn = run, "ref"
+    walls = run_phase(f"{name} timed ({attn} attention)",
+                      ["flash_attention"] if attn == "kernel" else [],
+                      lambda: wall_ms(timed, ROOF_REPS))
+    # the peak of the counted program (plain attention), as predicted
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    busy = profiled_busy_ms(timed)
+    del timed, run, args
+    torch.cuda.empty_cache()
+
+    meta = meta_for(shape)
+    rl = meta["roofline"]
+    mem = rl["memory_per_device"]
+    log(f"{name}: meta {rl['flops_per_device']:.6e} FLOPs "
+        f"{rl['bytes_per_device']:.6e} bytes, card {st.flops:.6e} FLOPs "
+        f"{st.bytes_accessed:.6e} bytes; arguments meta "
+        f"{mem['argument_size_in_bytes']:.0f} B, card tensors {arg_bytes} B "
+        f"({allocated} B allocated for them)")
+    check(plan.to_dict() == meta["plan"], f"{name}: the card's plan "
+          f"{plan.to_dict()} is not the dry run's {meta['plan']}")
+    check(st.flops == rl["flops_per_device"],
+          f"{name}: the card counts {st.flops} FLOPs, the dry run "
+          f"{rl['flops_per_device']}")
+    check(st.bytes_accessed == rl["bytes_per_device"],
+          f"{name}: the card counts {st.bytes_accessed} bytes, the dry run "
+          f"{rl['bytes_per_device']}")
+    check(arg_bytes == mem["argument_size_in_bytes"],
+          f"{name}: the step's tensors hold {arg_bytes} bytes, the dry run "
+          f"says {mem['argument_size_in_bytes']}")
+    wall = walls[len(walls) // 2]
+    model_flops = model_flops_for(cfg, shape, seq, batch, kind)
+    bound_ms = max(rl["compute_s"], rl["memory_s"]) * 1e3
+    res = dict(
+        kind=kind, batch=batch, seq=seq, plan=meta["plan"],
+        flops=st.flops, bytes=st.bytes_accessed,
+        flops_by_op=st.flops_by_op, argument_bytes=arg_bytes,
+        allocated_for_arguments=allocated,
+        temp_bytes_meta=mem["temp_size_in_bytes"],
+        temp_bytes_card_count=st.peak_live_bytes,
+        peak_allocated_bytes=peak, compute_ms=rl["compute_s"] * 1e3,
+        memory_ms=rl["memory_s"] * 1e3, bound_ms=bound_ms,
+        bottleneck=rl["bottleneck"], timed_attention=attn,
+        wall_ms=walls, wall_ms_median=wall, device_busy_ms=busy,
+        model_flops=model_flops, mfu=model_flops / (BF16_FLOPS * wall / 1e3),
+        busy_over_bound=busy / bound_ms, dry_run_s=meta["child_s"])
+    log(f"{name}: {attn} attention wall median {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms (profiled) against compute {res['compute_ms']:.3f} "
+        f"ms, memory {res['memory_ms']:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({rl['bottleneck']}); MFU {res['mfu']:.4f}; temp predicted "
+        f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB (card count "
+        f"{st.peak_live_bytes / 1e9:.3f}), peak allocated above the "
+        f"arguments by the plain-attention step {peak / 1e9:.3f} GB; dry run "
+        f"{meta['child_s']:.1f} s")
+    return res
+
+
+def roofline_phase(run_phase, card: str, dev) -> dict:
+    """qwen3-1.7b's prefill and train step at full width: the dry run in a
+    spawned child while the same steps are counted and timed on the card
+    (``roofline_cell``), then the two held equal."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    from repro_torch import configs
+    configs.SHAPES.update(ROOF_SHAPES)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    child = ctx.Process(target=roofline_child, args=(results,))
+    t0 = time.perf_counter()
+    child.start()
+    metas = {}
+
+    def meta_for(shape: str) -> dict:
+        if not metas:
+            try:
+                status, payload = results.get(timeout=900)
+            except queue_mod.Empty:
+                payload, status = None, "timeout"
+            child.join(timeout=60)
+            if child.is_alive():
+                child.kill()
+                child.join(timeout=30)
+            check(status == "ok" and child.exitcode == 0,
+                  f"roofline dry-run child: {status}, exit code "
+                  f"{child.exitcode}\n{payload}")
+            metas.update(payload)
+            metas["wall_s"] = time.perf_counter() - t0
+        return metas[shape]
+
+    try:
+        out = {"card": card}
+        for shape in ROOF_SHAPES:
+            out[shape] = roofline_cell(run_phase, shape, meta_for, dev)
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join(timeout=30)
+    out["dry_run_wall_s"] = metas["wall_s"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2911,6 +3105,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_layer["collectives"] = collectives_phase(dev)
     print(json.dumps({"dist": dist_layer}), flush=True)
+
+    # -- the roofline: qwen3-1.7b's prefill and train step, meta and card -----
+    print(json.dumps({"roofline": roofline_phase(run_phase, card, dev)}),
+          flush=True)
 
     entries = []
     for kname, row in rows.items():

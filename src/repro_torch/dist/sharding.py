@@ -42,6 +42,7 @@ order of the dims, so the rules need no change for it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
@@ -281,12 +282,35 @@ def placements(spec: Tuple, mesh) -> tuple:
     mesh dim whose axis names tensor dim ``d``, ``Replicate()`` on the
     others. A dim named by several axes (``("pod", "data")``) is split
     over them in mesh order, major first, as a ``PartitionSpec`` splits
-    it."""
+    it. A mesh dim of size 1 is ``Replicate()`` whatever the spec: its one
+    shard is the whole tensor, and DTensor refuses some reshapes of a dim
+    sharded even one way."""
     from torch.distributed.tensor import Replicate, Shard
+    _key_topk_by_k()
     out = []
-    for axis in mesh.mesh_dim_names:
+    for axis, size in zip(mesh.mesh_dim_names, tuple(mesh.shape)):
         dims = [d for d, entry in enumerate(spec)
                 if entry == axis or (isinstance(entry, tuple)
                                      and axis in entry)]
-        out.append(Shard(dims[0]) if dims else Replicate())
+        out.append(Shard(dims[0]) if dims and size > 1 else Replicate())
     return tuple(out)
+
+
+@functools.cache
+def _key_topk_by_k() -> None:
+    """Make DTensor's sharding-propagation cache key ``topk`` by its ``k``.
+
+    DTensor registers ``aten.topk`` with ``static_argnum=2``: the cache
+    keys an op by its DTensor specs and its arguments from that index on,
+    so ``k`` (argument 1) is not in the key. A second ``topk`` of the same
+    input specs with another ``k`` then gets the first one's output shape
+    (a dbrx MoE layer, top-4, after a phi-3.5-moe one, top-2, sees [..., 2]
+    experts). Every DTensor the port lays out gets its placements here,
+    so this runs before any sharded ``topk``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    schemas = DTensor._op_dispatcher.sharding_propagator.op_to_schema_info
+    topk = torch.ops.aten.topk.default
+    info = schemas.get(topk)
+    if info is not None and info.static_argnum > 1:
+        schemas[topk] = dataclasses.replace(info, static_argnum=1)

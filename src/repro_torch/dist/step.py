@@ -28,6 +28,7 @@ import torch.utils._pytree as pytree
 from ..core.memref import as_device_array
 from ..models.layers import plain_tree
 from ..optim import adamw
+from . import api as dist_api
 
 __all__ = ["init_train_state", "loss_and_grads", "build_train_step",
            "build_serve_step"]
@@ -148,7 +149,8 @@ def build_serve_step(model) -> Callable:
 
     def serve_step(params, cache, tokens):
         logits, cache = model.decode_step(params, tokens, cache)
-        nxt = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        last = dist_api.unshard(logits[:, -1:, :], -1)
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt, logits, cache
 
     return serve_step

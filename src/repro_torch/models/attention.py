@@ -90,28 +90,32 @@ def decode_rope(cfg: ModelConfig, positions: Optional[torch.Tensor]
     return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.attn_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
-    if cfg.qk_norm:
-        q = apply_norm(p["q_norm"], q, "rmsnorm")
-        k = apply_norm(p["k_norm"], k, "rmsnorm")
-    if rope is not None:
-        q, k = rotate(q, *rope), rotate(k, *rope)
+def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope, *,
+                 kv: bool = True
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                            Optional[torch.Tensor]]:
+    """(q, k, v) of ``x`` [B,S,D], each [B,S,heads,Dh]; with ``kv=False``
+    (cross-attention, whose K/V come from the encoder) only q, and None
+    twice: eager PyTorch would run the discarded projections, which XLA
+    drops from the JAX package's program."""
     from ..dist import api as dist_api
-    q = dist_api.hint_named(q, "attn_q")
-    k = dist_api.hint_named(k, "attn_kv")
-    v = dist_api.hint_named(v, "attn_kv")
-    return q, k, v
+
+    def project(name: str, heads: int, norm: Optional[str], pin: str):
+        y = x @ p["w" + name]
+        if cfg.attn_bias:
+            y = y + p["b" + name]
+        y = dist_api.unflatten(y, -1, (heads, cfg.resolved_head_dim))
+        if cfg.qk_norm and norm:
+            y = apply_norm(p[norm], y, "rmsnorm")
+        if rope is not None and norm:
+            y = rotate(y, *rope)
+        return dist_api.hint_named(y, pin)
+
+    q = project("q", cfg.n_heads, "q_norm", "attn_q")
+    if not kv:
+        return q, None, None
+    return (q, project("k", cfg.n_kv_heads, "k_norm", "attn_kv"),
+            project("v", cfg.n_kv_heads, None, "attn_kv"))
 
 
 def _mha(q, k, v, *, causal: bool, window: Optional[int],
@@ -150,9 +154,10 @@ def _scores_softmax_pv(qt, kt, vt, q_offset: int, *, causal: bool,
     """The grouped-head einsum attention of the queries ``qt`` [B,H,Sq,D]
     over ``kt``, ``vt`` [B,Hkv,Skv,D] → [B,H,Sq,D] in ``vt``'s dtype. Query
     i sits at key position ``q_offset + i`` for the masks."""
-    b, h, sq, d = qt.shape
+    h, sq, d = qt.shape[1:]
     hkv, skv = kt.shape[1], kt.shape[2]
-    qg = qt.reshape(b, hkv, h // hkv, sq, d)
+    from ..dist import api as dist_api
+    qg = dist_api.unflatten(qt, 1, (hkv, h // hkv))
     logits = torch.einsum("bkgqd,bkKd->bkgqK", qg.float(),
                           kt.float()) * (d ** -0.5)
     if softcap is not None:
@@ -167,7 +172,8 @@ def _scores_softmax_pv(qt, kt, vt, q_offset: int, *, causal: bool,
             mask &= kpos > (qpos - window)
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1).to(vt.dtype)
-    return torch.einsum("bkgqK,bkKd->bkgqd", probs, vt).reshape(b, h, sq, d)
+    return dist_api.flatten(
+        torch.einsum("bkgqK,bkKd->bkgqd", probs, vt), 1, 2)      # [B,H,Sq,D]
 
 
 def _mha_chunked(qt, kt, vt, *, causal: bool, window: Optional[int],
@@ -194,24 +200,25 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions, *,
     with no causal mask and no window.
     """
     check_impl(impl)
-    b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, decode_rope(cfg, positions))
+    q, k, v = _project_qkv(p, cfg, x, decode_rope(cfg, positions),
+                           kv=cross_kv is None)
     if cross_kv is not None:
         k, v = cross_kv
         causal, window = False, None
     out = _mha(q, k, v, causal=causal, window=window,
                softcap=cfg.attn_logit_softcap, impl=impl)
-    return out.reshape(b, s, -1) @ p["wo"]
+    from ..dist import api as dist_api
+    return dist_api.flatten(out, 2, 3) @ p["wo"]
 
 
 def project_kv(p, cfg: ModelConfig, x: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encoder-side K/V [B,T,Hkv,Dh] for cross-attention (computed once a
     request)."""
-    b, s, _ = x.shape
+    from ..dist import api as dist_api
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    k = dist_api.unflatten(x @ p["wk"], -1, (hkv, hd))
+    v = dist_api.unflatten(x @ p["wv"], -1, (hkv, hd))
     if cfg.attn_bias:
         k = k + p["bk"].reshape(hkv, hd)
         v = v + p["bv"].reshape(hkv, hd)
@@ -260,12 +267,13 @@ def decode_attention_into(p, cfg: ModelConfig, x: torch.Tensor, k_cache,
     :func:`decode_mask`) leaves. ``rope`` is :func:`decode_rope`'s. The
     caller owns the caches: they are copies, never a step's input.
     Returns out [B,1,D]."""
+    from ..dist import api as dist_api
     b = x.shape[0]
     q, k_new, v_new = _project_qkv(p, cfg, x, rope)
-    k_cache.index_copy_(1, index, k_new.to(k_cache.dtype))
-    v_cache.index_copy_(1, index, v_new.to(v_cache.dtype))
+    dist_api.index_copy_(k_cache, 1, index, k_new.to(k_cache.dtype))
+    dist_api.index_copy_(v_cache, 1, index, v_new.to(v_cache.dtype))
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    qg = q.reshape(b, hkv, h // hkv, hd)                          # [B,Hkv,G,D]
+    qg = dist_api.unflatten(q, 2, (hkv, h // hkv))[:, 0]          # [B,Hkv,G,D]
     logits = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                           k_cache.float()) * (hd ** -0.5)
     if cfg.attn_logit_softcap is not None:

@@ -132,7 +132,8 @@ def m_rope_tables(positions3: torch.Tensor, head_dim: int, theta: float,
     # section id of each frequency pair: [d/2] in {0, 1, 2}
     sec_ids = torch.repeat_interleave(
         torch.arange(3, device=positions3.device),
-        torch.tensor(sections, device=positions3.device))
+        torch.tensor(sections, device=positions3.device),
+        output_size=head_dim // 2)
     pos = positions3.index_select(0, sec_ids)                     # [d/2,B,S]
     angles = pos.permute(1, 2, 0).float() * freqs                 # [B,S,d/2]
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]

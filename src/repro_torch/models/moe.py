@@ -79,6 +79,14 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
     comb = torch.einsum("bske,bskc->bsec",
                         onehot * (topv * keep)[..., None], cap_onehot)
 
+    # Switch aux loss: E · Σ_e fraction_tokens(e) · mean_prob(e). It comes
+    # before the experts: under remat the backward recomputes the layer up
+    # to the last tensor it saves, and the aux product saves two, so taken
+    # last it would recompute the combine einsum, which XLA drops in JAX
+    frac = onehot.sum(2).mean((0, 1))                               # [E]
+    mean_prob = probs.mean((0, 1))                                  # [E]
+    aux = e * (frac * mean_prob).sum() * cfg.moe.aux_loss_weight
+
     cd = x.dtype
     expert_in = torch.einsum("bsec,bsd->becd", disp.to(cd), x)      # [B,E,C,D]
     if cfg.mlp in ("swiglu", "geglu"):
@@ -89,11 +97,9 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
     else:
         h = F.gelu(torch.einsum("becd,edf->becf", expert_in, p["w_up"]),
                    approximate="tanh")
-    expert_out = torch.einsum("becf,efd->becd", h, p["w_out"])      # [B,E,C,D]
+    from ..dist import api as dist_api
+    expert_out = torch.einsum("becf,efd->becd", dist_api.match_layout(h),
+                              p["w_out"])                           # [B,E,C,D]
     y = torch.einsum("bsec,becd->bsd", comb.to(cd), expert_out)
 
-    # Switch aux loss: E · Σ_e fraction_tokens(e) · mean_prob(e)
-    frac = onehot.sum(2).mean((0, 1))                               # [E]
-    mean_prob = probs.mean((0, 1))                                  # [E]
-    aux = e * (frac * mean_prob).sum() * cfg.moe.aux_loss_weight
     return y.reshape(b_in, s_in, d), aux.float()

@@ -256,14 +256,20 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
-    """Mean of ``logsumexp`` minus the label logit, in f32. A gather picks
-    the label logit, the value JAX's one-hot select sums to; the f32
-    logits are pinned to the vocab sharding (``dist.api.hint_vocab``), as
-    JAX pins them and its one-hot select."""
+    """Mean of ``logsumexp`` minus the label logit, in f32. The label
+    logit is JAX's one-hot select: a sum over the vocabulary of the logits
+    where the label is and zeros elsewhere, exactly the logit a gather
+    picks. The f32 logits, the one-hot mask and the select are pinned to
+    the vocab sharding (``dist.api.hint_vocab``), as JAX pins them, so a
+    vocab-sharded ``DTensor`` never replicates V (a gather along a sharded
+    vocab dim is a case DTensor's sharding propagation cannot take)."""
     from ..dist import api as dist_api
     lf = dist_api.hint_vocab(logits.float())
     lse = torch.logsumexp(lf, dim=-1)
-    label_logit = lf.gather(-1, labels.long()[..., None])[..., 0]
+    vocab_iota = torch.arange(lf.shape[-1], device=labels.device)
+    onehot = dist_api.hint_vocab(labels.long()[..., None] == vocab_iota)
+    label_logit = dist_api.hint_vocab(
+        torch.where(onehot, lf, 0.0)).sum(-1)
     return (lse - label_logit).mean()
 
 

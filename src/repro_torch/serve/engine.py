@@ -185,8 +185,11 @@ def make_graph_decode_worker(step_graph, *, combine: Optional[Callable] = None,
                 for i in range(nleaves)]
         dev = _torch_device(device) or (cols[0].device if cols else None)
         try:
-            res = step_graph.ask(_token_tensor(tokens, dev), *cols,
-                                 timeout=timeout)
+            # running the step graph is the whole of this worker's job:
+            # it waits for the step, bounded by ``timeout``, and nothing
+            # else queues behind it
+            res = step_graph.ask(  # lint: the graph step is this worker's job
+                _token_tensor(tokens, dev), *cols, timeout=timeout)
             # a single-output graph resolves to its bare value (the
             # cache-less nleaves == 0 case); normalize before the check
             if not isinstance(res, tuple):

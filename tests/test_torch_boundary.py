@@ -46,6 +46,10 @@ def test_port_imports_no_jax_and_no_repro():
         import repro_torch.configs.whisper_tiny, repro_torch.configs.wah_paper
         import repro_torch.dist.api, repro_torch.dist.pipeline
         import repro_torch.dist.sharding, repro_torch.launch.mesh
+        import repro_torch.roofline, repro_torch.roofline.counter
+        import repro_torch.roofline.analysis, repro_torch.launch.dryrun_lib
+        import repro_torch.launch.dryrun, repro_torch.analysis.lint
+        import repro_torch.analysis.rules, repro_torch.analysis.__main__
         bad = sorted(m for m in sys.modules
                      if m.startswith("jax") or m == "repro"
                      or m.startswith("repro.") or m.startswith("ml_dtypes"))

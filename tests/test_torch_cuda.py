@@ -929,3 +929,19 @@ def test_bf16_train_state_survives_a_checkpoint_on_the_card(cuda_device,
                            b.view(torch.uint8) if b.dim() else b)
         dtypes.add(a.dtype)
     assert dtypes == {torch.bfloat16, torch.float32, torch.int32}
+
+
+def test_counter_on_a_bf16_matmul_on_the_card_counts_as_on_meta(cuda_device):
+    """The roofline counter counts a bf16 product on the card as it counts
+    the same product on ``meta``: 2·m·n·k FLOPs, both operands read and
+    the result written once."""
+    from repro_torch.roofline.counter import count
+    m, k, n = 512, 1024, 256
+    got = {}
+    for dev in (cuda_device, torch.device("meta")):
+        a = torch.ones(m, k, dtype=torch.bfloat16, device=dev)
+        b = torch.ones(k, n, dtype=torch.bfloat16, device=dev)
+        _, st = count(lambda: a @ b, dev.type)
+        got[dev.type] = (st.flops, st.bytes_accessed, st.flops_by_op)
+    assert got["cuda"] == got["meta"] == (
+        2 * m * n * k, 2 * (m * k + k * n + m * n), {"aten.mm": 2 * m * n * k})
