@@ -87,8 +87,8 @@ def loss_and_grads(model, params, batch: Dict[str, Any], *,
     adt = getattr(torch, accum_dtype)
     mbs = batch if presplit else _split_microbatches(batch, grad_accum)
     loss = torch.zeros((), dtype=torch.float32, device=model.device)
-    grads = pytree.tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                                  device=p.device), params)
+    # laid out as the parameters (a sharded one's accumulator is sharded)
+    grads = pytree.tree_map(lambda p: torch.zeros_like(p, dtype=adt), params)
     parts_sum = None
     for i in range(grad_accum):
         mb = {k: v[i] for k, v in mbs.items()}

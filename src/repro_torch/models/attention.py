@@ -26,6 +26,7 @@ them to :func:`decode_attention_into`, which writes into the copy.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -120,8 +121,28 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope, *,
 
 def _mha(q, k, v, *, causal: bool, window: Optional[int],
          softcap: Optional[float], impl: str) -> torch.Tensor:
-    """q: [B,Sq,H,D] → [B,Sq,H,D]; k/v: [B,Skv,Hkv,D]."""
+    """q: [B,Sq,H,D] → [B,Sq,H,D]; k/v: [B,Skv,Hkv,D]. A sharded ``q``
+    runs on each device's own heads or query rows
+    (``dist.api.local_attention``)."""
+    from ..dist import api as dist_api
+    sq = q.shape[1]
+
+    def local(q, k, v, first, combine):
+        return _mha_local(q, k, v, k.shape[1] - sq + first, causal=causal,
+                          window=window, softcap=softcap, impl=impl,
+                          combine=combine)
+
+    return dist_api.local_attention(local, q, k, v)
+
+
+def _mha_local(q, k, v, q_offset: int, *, causal: bool,
+               window: Optional[int], softcap: Optional[float], impl: str,
+               combine=None) -> torch.Tensor:
+    """:func:`_mha` on tensors whose query i sits at key position
+    ``q_offset + i``; with ``combine`` the keys are one device's share of
+    them, unmasked (``dist.api.local_attention``)."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sq = qt.shape[2]
     if impl == "kernel":
         if q.requires_grad or k.requires_grad or v.requires_grad:
             raise NotImplementedError(
@@ -131,29 +152,36 @@ def _mha(q, k, v, *, causal: bool, window: Optional[int],
             raise NotImplementedError(
                 "attn_impl='kernel': the flash attention kernel has no logit "
                 "softcap (ROADMAP B6); use attn_impl='ref'")
+        if q_offset != kt.shape[2] - sq or combine is not None:
+            raise NotImplementedError(
+                "attn_impl='kernel' takes whole rows of whole keys; queries "
+                "or keys split over devices need attn_impl='ref'")
         out = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
         return out.transpose(1, 2)
-    sq = qt.shape[2]
     if impl.startswith("ref_chunked"):
         _, _, chunk = impl.partition(":")
         q_chunk = min(int(chunk) if chunk else DEFAULT_Q_CHUNK, sq)
         if sq % q_chunk == 0:
-            return _mha_chunked(qt, kt, vt, causal=causal, window=window,
-                                softcap=softcap, q_chunk=q_chunk
+            return _mha_chunked(qt, kt, vt, q_offset, causal=causal,
+                                window=window, softcap=softcap,
+                                q_chunk=q_chunk, combine=combine
                                 ).transpose(1, 2)
     # (a sequence the chunk does not divide, such as whisper's 1500-frame
     # encoder, falls through to the plain path, as in JAX)
-    out = _scores_softmax_pv(qt, kt, vt, kt.shape[2] - sq, causal=causal,
-                             window=window, softcap=softcap)
+    out = _scores_softmax_pv(qt, kt, vt, q_offset, causal=causal,
+                             window=window, softcap=softcap, combine=combine)
     return out.transpose(1, 2).to(q.dtype)
 
 
 def _scores_softmax_pv(qt, kt, vt, q_offset: int, *, causal: bool,
-                       window: Optional[int], softcap: Optional[float]
-                       ) -> torch.Tensor:
+                       window: Optional[int], softcap: Optional[float],
+                       combine=None) -> torch.Tensor:
     """The grouped-head einsum attention of the queries ``qt`` [B,H,Sq,D]
     over ``kt``, ``vt`` [B,Hkv,Skv,D] → [B,H,Sq,D] in ``vt``'s dtype. Query
-    i sits at key position ``q_offset + i`` for the masks."""
+    i sits at key position ``q_offset + i`` for the masks. With
+    ``combine`` the keys are one device's share of an unmasked attention:
+    the softmax is taken with their own maximum and ``combine(o, l, m)``
+    merges every device's (``dist.api.local_attention``)."""
     h, sq, d = qt.shape[1:]
     hkv, skv = kt.shape[1], kt.shape[2]
     from ..dist import api as dist_api
@@ -170,20 +198,31 @@ def _scores_softmax_pv(qt, kt, vt, q_offset: int, *, causal: bool,
             mask &= kpos <= qpos
         if window is not None:
             mask &= kpos > (qpos - window)
+        if combine is not None:
+            raise NotImplementedError("keys split over devices take no mask")
         logits = logits.masked_fill(~mask, -1e30)
+    if combine is not None:
+        m = logits.amax(-1, keepdim=True)
+        e = torch.exp(logits - m)
+        out = combine(torch.einsum("bkgqK,bkKd->bkgqd", e, vt.float()),
+                      e.sum(-1, keepdim=True), m).to(vt.dtype)
+        return out.flatten(1, 2)
     probs = torch.softmax(logits, dim=-1).to(vt.dtype)
     return dist_api.flatten(
         torch.einsum("bkgqK,bkKd->bkgqd", probs, vt), 1, 2)      # [B,H,Sq,D]
 
 
-def _mha_chunked(qt, kt, vt, *, causal: bool, window: Optional[int],
-                 softcap: Optional[float], q_chunk: int) -> torch.Tensor:
+def _mha_chunked(qt, kt, vt, q_offset: int, *, causal: bool,
+                 window: Optional[int], softcap: Optional[float],
+                 q_chunk: int, combine=None) -> torch.Tensor:
     """Sarathi-style chunked prefill: one query chunk at a time, so the
     score tensor is [B,H,qc,Skv] instead of [B,H,Sq,Skv] (JAX's
-    ``lax.scan`` over chunks). qt [B,H,Sq,D] → [B,H,Sq,D] in qt's dtype."""
-    sq, skv = qt.shape[2], kt.shape[2]
-    outs = [_scores_softmax_pv(qt[:, :, c:c + q_chunk], kt, vt, c + skv - sq,
-                               causal=causal, window=window, softcap=softcap)
+    ``lax.scan`` over chunks). qt [B,H,Sq,D] → [B,H,Sq,D] in qt's dtype;
+    query i sits at key position ``q_offset + i``."""
+    sq = qt.shape[2]
+    outs = [_scores_softmax_pv(qt[:, :, c:c + q_chunk], kt, vt, c + q_offset,
+                               causal=causal, window=window, softcap=softcap,
+                               combine=combine)
             for c in range(0, sq, q_chunk)]
     return torch.cat(outs, dim=2).to(qt.dtype)
 
@@ -200,6 +239,8 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions, *,
     with no causal mask and no window.
     """
     check_impl(impl)
+    from ..dist import api as dist_api
+    x = dist_api.stream(x)
     q, k, v = _project_qkv(p, cfg, x, decode_rope(cfg, positions),
                            kv=cross_kv is None)
     if cross_kv is not None:
@@ -207,8 +248,7 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions, *,
         causal, window = False, None
     out = _mha(q, k, v, causal=causal, window=window,
                softcap=cfg.attn_logit_softcap, impl=impl)
-    from ..dist import api as dist_api
-    return dist_api.flatten(out, 2, 3) @ p["wo"]
+    return dist_api.stream(dist_api.flatten(out, 2, 3) @ p["wo"])
 
 
 def project_kv(p, cfg: ModelConfig, x: torch.Tensor
@@ -217,6 +257,7 @@ def project_kv(p, cfg: ModelConfig, x: torch.Tensor
     request)."""
     from ..dist import api as dist_api
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    x = dist_api.stream(x)
     k = dist_api.unflatten(x @ p["wk"], -1, (hkv, hd))
     v = dist_api.unflatten(x @ p["wv"], -1, (hkv, hd))
     if cfg.attn_bias:
@@ -269,21 +310,38 @@ def decode_attention_into(p, cfg: ModelConfig, x: torch.Tensor, k_cache,
     Returns out [B,1,D]."""
     from ..dist import api as dist_api
     b = x.shape[0]
+    x = dist_api.stream(x)
     q, k_new, v_new = _project_qkv(p, cfg, x, rope)
     dist_api.index_copy_(k_cache, 1, index, k_new.to(k_cache.dtype))
     dist_api.index_copy_(v_cache, 1, index, v_new.to(v_cache.dtype))
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     qg = dist_api.unflatten(q, 2, (hkv, h // hkv))[:, 0]          # [B,Hkv,G,D]
-    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(),
-                          k_cache.float()) * (hd ** -0.5)
-    if cfg.attn_logit_softcap is not None:
-        cap = cfg.attn_logit_softcap
-        logits = cap * torch.tanh(logits / cap)
+    out = dist_api.local_decode_attention(
+        functools.partial(_decode_attend, scale=hd ** -0.5,
+                          softcap=cfg.attn_logit_softcap),
+        qg, k_cache, v_cache, masked).to(x.dtype)
+    return dist_api.stream(out.reshape(b, 1, h * hd) @ p["wo"])
+
+
+def _decode_attend(qg, k, v, masked, combine, *, scale: float,
+                   softcap: Optional[float]) -> torch.Tensor:
+    """One token's attention: ``qg`` [B,Hkv,G,D] over the slots of ``k``,
+    ``v`` [B,S,Hkv,D] that ``masked`` [S] leaves → [B,Hkv,G,D] f32, the
+    scores in f32. With ``combine`` these are one device's slots of a
+    cache split over several: the softmax is taken with their own maximum
+    and ``combine(o, l, m)`` merges the unnormalised outputs, the sums and
+    the maxima of every device's slots (``dist.api.local_decode_attention``)."""
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
     logits = logits.masked_fill(masked, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", probs,
-                       v_cache.float()).to(x.dtype)
-    return out.reshape(b, 1, h * hd) @ p["wo"]
+    if combine is None:
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bkgs,bskd->bkgd", probs, v.float())
+    m = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - m)
+    return combine(torch.einsum("bkgs,bskd->bkgd", e, v.float()),
+                   e.sum(-1, keepdim=True), m)
 
 
 def decode_attention(p, cfg: ModelConfig, x: torch.Tensor, k_cache, v_cache,

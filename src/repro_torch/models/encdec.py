@@ -71,6 +71,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 def _enc_block(block, cfg: ModelConfig, x: torch.Tensor, attn_impl: str
                ) -> torch.Tensor:
+    from ..dist import api as dist_api
+    block = dist_api.gather_weights(block)
     h = apply_norm(block["norm1"], x, cfg.norm)
     x = x + attn_mod.attention(block["attn"], cfg, h, None, causal=False,
                                impl=attn_impl)
@@ -95,6 +97,8 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
 
 def _dec_block(block, cfg: ModelConfig, x: torch.Tensor,
                enc_out: torch.Tensor, attn_impl: str) -> torch.Tensor:
+    from ..dist import api as dist_api
+    block = dist_api.gather_weights(block)
     h = apply_norm(block["norm1"], x, cfg.norm)
     x = x + attn_mod.attention(block["self_attn"], cfg, h, None, causal=True,
                                impl=attn_impl)
@@ -104,6 +108,14 @@ def _dec_block(block, cfg: ModelConfig, x: torch.Tensor,
                                cross_kv=kv, impl=attn_impl)
     h = apply_norm(block["norm2"], x, cfg.norm)
     return x + apply_mlp(block["mlp"], h, cfg.mlp)
+
+
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The decoder's token embeddings [B,S,D], pinned to the residual
+    stream's layout (a vocab-sharded table gives partial sums)."""
+    from ..dist import api as dist_api
+    return dist_api.stream(torch.nn.functional.embedding(
+        tokens, params["dec"]["embed"]))
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -120,7 +132,7 @@ def forward(params, cfg: ModelConfig, frames: torch.Tensor,
     pos_embed = params["dec"]["pos_embed"]
     pos = torch.arange(s, device=tokens.device).clamp(
         max=pos_embed.shape[0] - 1)
-    x = params["dec"]["embed"][tokens] + pos_embed[pos]
+    x = _embed(params, tokens) + pos_embed[pos]
     x = x.to(cfg.dtype())
     body = _dec_block
     if torch.is_grad_enabled():
@@ -169,7 +181,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     cache_len = cache["len"]
     pos_embed = params["dec"]["pos_embed"]
     pos = torch.clamp(cache_len, max=pos_embed.shape[0] - 1).reshape(1)
-    x = params["dec"]["embed"][tokens] + pos_embed.index_select(0, pos)
+    x = _embed(params, tokens) + pos_embed.index_select(0, pos)
     x = x.to(cfg.dtype())
     k_all, v_all = cache["self"]["k"].clone(), cache["self"]["v"].clone()
     smax = k_all.shape[2]

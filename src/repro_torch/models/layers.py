@@ -190,7 +190,10 @@ def init_mlp(gen: torch.Generator, d: int, f: int, kind: str, dtype, device
 def apply_mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     """The MLP of ``kind``. gelu is the tanh approximation, which
     ``jax.nn.gelu`` computes by default; relu2 is the squared ReLU
-    (Primer; Nemotron-4)."""
+    (Primer; Nemotron-4). ``x`` and the output are pinned to the residual
+    stream's layout (``dist.api.stream``)."""
+    from ..dist import api as dist_api
+    x = dist_api.stream(x)
     if kind == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     elif kind == "geglu":
@@ -201,9 +204,8 @@ def apply_mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = torch.square(F.relu(x @ p["w_up"]))
     else:
         raise ValueError(f"unknown MLP {kind!r}; expected one of {MLP_KINDS}")
-    from ..dist import api as dist_api
     h = dist_api.hint_named(h, "mlp_hidden")
-    return h @ p["w_out"]
+    return dist_api.stream(h @ p["w_out"])
 
 
 # ----------------------------------------------------------------------------

@@ -50,6 +50,8 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,S,D] → (y [B,S,D], aux loss f32 0-d). S must be a multiple of
     the routing group length ``min(group_size, S)``."""
+    from ..dist import api as dist_api
+    x = dist_api.stream(x)
     b_in, s_in, d = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     g = min(cfg.moe.group_size, s_in)
@@ -97,9 +99,9 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
     else:
         h = F.gelu(torch.einsum("becd,edf->becf", expert_in, p["w_up"]),
                    approximate="tanh")
-    from ..dist import api as dist_api
     expert_out = torch.einsum("becf,efd->becd", dist_api.match_layout(h),
                               p["w_out"])                           # [B,E,C,D]
     y = torch.einsum("bsec,becd->bsd", comb.to(cd), expert_out)
 
-    return y.reshape(b_in, s_in, d), aux.float()
+    # pinned per routing group: the combine's layout may split a group
+    return dist_api.stream(y).reshape(b_in, s_in, d), aux.float()

@@ -68,9 +68,12 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype, device
 
 def _gates(params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(log a, gated input b), both f32, for x [..., W]."""
+    from ..dist import api as dist_api
     xf = x.float()
-    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"])
-    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"])
+    r = torch.sigmoid(dist_api.split_model(xf @ params["w_a"].float(), -1)
+                      + params["b_a"])
+    i = torch.sigmoid(dist_api.split_model(xf @ params["w_i"].float(), -1)
+                      + params["b_i"])
     log_a = -_C * F.softplus(params["lam"]) * r           # log a_t, a in (0,1)
     a = torch.exp(log_a)
     gated_x = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
@@ -112,11 +115,13 @@ def _scan(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def apply_rglru(params, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     """Full-sequence Griffin recurrent block. u: [B,S,D] → [B,S,D]."""
+    from ..dist import api as dist_api
+    u = dist_api.stream(u)
     x = _causal_conv(u @ params["w_x"], params["conv_w"], params["conv_b"])
     log_a, gx = _gates(params, x)                                 # [B,S,W]
-    h = _scan(log_a, gx)
+    h = dist_api.local_map(_scan, log_a, gx, dim=2)   # each channel's own
     y = h.to(u.dtype) * F.gelu(u @ params["w_y"], approximate="tanh")
-    return y @ params["w_out"]
+    return dist_api.stream(y @ params["w_out"])
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, n_layers: int,
@@ -136,6 +141,8 @@ def decode_rglru(params, cfg: ModelConfig, u: torch.Tensor, state, conv
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step. u: [B,1,D]; state: [B,W]; conv: [B,CW-1,W] → (y [B,1,D],
     new state, new conv); the inputs are not written."""
+    from ..dist import api as dist_api
+    u = dist_api.stream(u)
     xt = u[:, 0, :] @ params["w_x"]                               # [B,W]
     window = torch.cat([conv, xt[:, None, :].to(conv.dtype)], dim=1)
     new_conv = window[:, 1:, :]
@@ -145,4 +152,4 @@ def decode_rglru(params, cfg: ModelConfig, u: torch.Tensor, state, conv
     state = torch.exp(log_a) * state + gx
     y = state.to(u.dtype)[:, None, :] * F.gelu(u @ params["w_y"],
                                                approximate="tanh")
-    return y @ params["w_out"], state, new_conv
+    return dist_api.stream(y @ params["w_out"]), state, new_conv

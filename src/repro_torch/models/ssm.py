@@ -10,6 +10,7 @@ the pure recurrence against a (state, conv) cache. Attention-free.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -74,27 +75,64 @@ def _split(cfg: ModelConfig, zxbcdt: torch.Tensor):
 def apply_ssm(params, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     """Full-sequence SSD. u: [B,S,D] → [B,S,D]; S must be a multiple of
     the chunk ``min(cfg.ssm.chunk, S)``."""
+    from ..dist import api as dist_api
+    u = dist_api.stream(u)
     d, di, n, p, h, g, conv_dim = _dims(cfg)
     b, s, _ = u.shape
     q = min(cfg.ssm.chunk, s)
     if s % q:
         raise ValueError(f"sequence {s} is no multiple of the SSD chunk {q}")
 
-    z, xbc, dt = _split(cfg, u @ params["in_proj"])
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-    x = xbc[..., :di].reshape(b, s, h, p)
+    # the split points of z | xBC | dt do not fall on the projection's
+    # shards: it is gathered once, and each device mixes its own heads
+    zxbcdt = dist_api.unshard(dist_api.split_product(u, params["in_proj"]),
+                              -1)
+    y = dist_api.local_heads(
+        functools.partial(_mix, cfg=cfg, q=q), h, (zxbcdt,),
+        [params[k] for k in ("conv_w", "conv_b", "dt_bias", "a_log",
+                             "d_skip")])                          # [B,S,H,P]
+    # split evenly again for the row-parallel out_proj (heads that the
+    # model axis does not divide were gathered to flatten them)
+    y = dist_api.split_model(dist_api.flatten(y, 2, 3), -1)
+    y = apply_norm(params["norm"], y, "rmsnorm")
+    return dist_api.stream(y @ params["out_proj"])
+
+
+def _mix(part: slice, zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, *,
+         cfg: ModelConfig, q: int) -> torch.Tensor:
+    """The SSD mixer of the heads ``part`` from the input projection
+    ``zxbcdt`` [B,S,·]: the causal conv, the chunked recurrence, the skip
+    and the gate → [B,S,heads,P], before the gated norm."""
+    d, di, n, p, h, g, conv_dim = _dims(cfg)
+    b, s, _ = zxbcdt.shape
+    heads, cols = part, slice(part.start * p, part.stop * p)
+    hl = part.stop - part.start
+    z, xbc, dt = _split(cfg, zxbcdt)
+    xbc = _causal_conv(xbc, conv_w, conv_b)
+    x = xbc[..., :di][..., cols].reshape(b, s, hl, p)
     # groups broadcast over heads
     bmat = xbc[..., di:di + g * n].reshape(b, s, g, n).repeat_interleave(
-        h // g, dim=2).float()                                   # [B,S,H,N]
+        h // g, dim=2)[:, :, heads].float()                      # [B,S,H,N]
     cmat = xbc[..., di + g * n:].reshape(b, s, g, n).repeat_interleave(
-        h // g, dim=2).float()
+        h // g, dim=2)[:, :, heads].float()
 
-    dt = F.softplus(dt.float() + params["dt_bias"])               # [B,S,H]
-    delta = dt * -torch.exp(params["a_log"])                      # log decay
+    dt = F.softplus(dt[..., heads].float() + dt_bias[heads])      # [B,S,H]
+    delta = dt * -torch.exp(a_log[heads])                         # log decay
     xw = x.float() * dt[..., None]                                # [B,S,H,P]
+    y = _ssd_chunks(cmat, bmat, xw, delta, q=q)                   # [B,S,H,P]
+    y = y + x.float() * d_skip[heads][None, None, :, None]
+    return y.to(zxbcdt.dtype) * F.silu(z[..., cols]).reshape(b, s, hl, p)
 
-    t = torch.arange(q, device=u.device)
-    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=u.device)
+
+def _ssd_chunks(cmat, bmat, xw, delta, *, q: int) -> torch.Tensor:
+    """The SSD recurrence over chunks of ``q`` steps from a zero state:
+    ``cmat``, ``bmat`` [B,S,H,N], ``xw`` [B,S,H,P] and the log decays
+    ``delta`` [B,S,H], all f32 → y [B,S,H,P] f32. Each head and each
+    sequence is computed on its own."""
+    b, s, h, n = bmat.shape
+    p = xw.shape[-1]
+    t = torch.arange(q, device=xw.device)
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=xw.device)
     ys = []
     for c0 in range(0, s, q):
         cm, bm = cmat[:, c0:c0 + q], bmat[:, c0:c0 + q]
@@ -122,12 +160,7 @@ def apply_ssm(params, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
         tail = torch.exp(F.pad(rev[:, 1:], (0, 0, 0, 1)))          # [B,Q,H]
         state = state * torch.exp(cum[:, -1, :])[..., None, None] + \
             torch.einsum("bjh,bjhn,bjhp->bhnp", tail, bm, xc)
-
-    y = torch.cat(ys, dim=1)                                      # [B,S,H,P]
-    y = y + x.float() * params["d_skip"][None, None, :, None]
-    y = y.reshape(b, s, di).to(u.dtype)
-    y = apply_norm(params["norm"], y * F.silu(z), "rmsnorm")
-    return y @ params["out_proj"]
+    return torch.cat(ys, dim=1)
 
 
 # ----------------------------------------------------------------------------
@@ -150,26 +183,56 @@ def decode_ssm(params, cfg: ModelConfig, u: torch.Tensor, state, conv
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step. u: [B,1,D]; state: [B,H,N,P]; conv: [B,W-1,C] → (y
     [B,1,D], new state, new conv); the inputs are not written."""
+    from ..dist import api as dist_api
+    u = dist_api.stream(u)
     d, di, n, p, h, g, conv_dim = _dims(cfg)
-    b = u.shape[0]
-    z, xbc, dt = _split(cfg, u[:, 0, :] @ params["in_proj"])
-
+    zxbcdt = dist_api.unshard(
+        dist_api.split_product(u[:, 0, :], params["in_proj"]), -1)
+    xbc = _split(cfg, zxbcdt)[1]
     window = torch.cat([conv, xbc[:, None, :].to(conv.dtype)], dim=1)
     new_conv = window[:, 1:, :]
-    xbc = F.silu(torch.einsum("bwc,wc->bc", window.float(),
-                              params["conv_w"].float())
-                 + params["conv_b"].float())
-    x = xbc[:, :di].reshape(b, h, p)
-    bm = xbc[:, di:di + g * n].reshape(b, g, n).repeat_interleave(h // g, 1)
-    cm = xbc[:, di + g * n:].reshape(b, g, n).repeat_interleave(h // g, 1)
+    # each device steps its own heads; the new state stays split by them
+    y, state = dist_api.local_heads(
+        functools.partial(_step, cfg=cfg), h, (zxbcdt, window),
+        [params[k] for k in ("conv_w", "conv_b", "dt_bias", "a_log",
+                             "d_skip")], dims=(1, 1), split=(state,))
+    y = dist_api.split_model(dist_api.flatten(y, 1, 2), -1)
+    y = apply_norm(params["norm"], y, "rmsnorm")
+    return dist_api.stream((y @ params["out_proj"])[:, None, :]), state, \
+        new_conv
 
-    dt = F.softplus(dt.float() + params["dt_bias"])               # [B,H]
-    decay = torch.exp(dt * -torch.exp(params["a_log"]))           # [B,H]
+
+def _step(part: slice, zxbcdt, window, state, conv_w, conv_b, dt_bias,
+          a_log, d_skip, *, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrence step of the heads ``part``: (their gated output
+    [B,heads,P] in ``zxbcdt``'s dtype, before the norm, and their new
+    state [B,heads,N,P]) from the projection ``zxbcdt`` [B,·], the conv
+    ``window`` [B,W,C] and their old ``state`` [B,heads,N,P]. The conv
+    runs on the heads' own x channels and every B/C channel."""
+    d, di, n, p, h, g, conv_dim = _dims(cfg)
+    b = zxbcdt.shape[0]
+    heads, cols = part, slice(part.start * p, part.stop * p)
+    xl = (part.stop - part.start) * p
+    z, _, dt = _split(cfg, zxbcdt)
+    if xl < di:
+        keep = torch.cat([torch.arange(di, device=window.device)[cols],
+                          torch.arange(di, conv_dim, device=window.device)])
+        window, conv_w, conv_b = window[..., keep], conv_w[:, keep], \
+            conv_b[keep]
+    xbc = F.silu(torch.einsum("bwc,wc->bc", window.float(), conv_w.float())
+                 + conv_b.float())
+    x = xbc[:, :xl].reshape(b, -1, p)
+    bm = xbc[:, xl:xl + g * n].reshape(b, g, n).repeat_interleave(
+        h // g, 1)[:, heads]
+    cm = xbc[:, xl + g * n:].reshape(b, g, n).repeat_interleave(
+        h // g, 1)[:, heads]
+
+    dt = F.softplus(dt[:, heads].float() + dt_bias[heads])        # [B,H]
+    decay = torch.exp(dt * -torch.exp(a_log[heads]))              # [B,H]
     xw = x * dt[..., None]                                        # [B,H,P]
     state = state * decay[..., None, None] + \
         torch.einsum("bhn,bhp->bhnp", bm, xw)
     y = torch.einsum("bhn,bhnp->bhp", cm, state) + \
-        x * params["d_skip"][None, :, None]
-    y = y.reshape(b, di).to(u.dtype)
-    y = apply_norm(params["norm"], y * F.silu(z), "rmsnorm")
-    return (y @ params["out_proj"])[:, None, :], state, new_conv
+        x * d_skip[heads][None, :, None]
+    return y.to(zxbcdt.dtype) * F.silu(z[:, cols]).reshape(b, -1, p), state

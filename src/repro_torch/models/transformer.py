@@ -29,6 +29,7 @@ import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -106,7 +107,7 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 def unit_starts(cfg: ModelConfig) -> List[bool]:
     """Whether each entry of ``params["layers"]`` begins a unit: where the
-    JAX package's scan body pins the residual stream (``dist.api.hint``)."""
+    JAX package's scan body pins the residual stream (``dist.api.stream``)."""
     return [i == 0 for unit, count in layer_groups(cfg)
             for _ in range(count) for i in range(len(unit))]
 
@@ -156,7 +157,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 def _apply_block(block, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions, attn_impl: str
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One layer: ``(x, the MoE aux loss of the layer or None)``."""
+    """One layer: ``(x, the MoE aux loss of the layer or None)``. Its
+    FSDP-sharded weights are gathered here, inside the remat boundary, so
+    a recompute gathers them again and the step never holds them all."""
+    from ..dist import api as dist_api
+    block = dist_api.gather_weights(block)
     h = apply_norm(block["norm1"], x, cfg.norm)
     if kind == "ssm":
         return x + ssm_mod.apply_ssm(block["ssm"], cfg, h), None
@@ -183,7 +188,9 @@ def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
                  ) -> torch.Tensor:
     """Token embeddings [B,S,D] in the compute dtype; ``vision_embeds``
     [B,P,D] (the vlm family's stub frontend) replace the first P."""
-    x = params["embed"][tokens]
+    from ..dist import api as dist_api
+    x = dist_api.stream(F.embedding(tokens,
+                                  dist_api.gather_weights(params["embed"])))
     if vision_embeds is not None:
         n = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, n:, :]], dim=1)
@@ -204,13 +211,13 @@ def apply_layers(layers, cfg: ModelConfig, x: torch.Tensor, positions,
     """``layers``, ``(block params, kind, unit start)`` triples in
     execution order, over the residual stream ``x`` → (x, the MoE layers'
     aux loss summed, f32 0-d). The stream is pinned at each unit's start
-    (``dist.api.hint``, the identity outside a sharding context), where
+    (``dist.api.stream``, the identity on a plain tensor), where
     the JAX package's scan body pins it."""
     from ..dist import api as dist_api
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block, kind, start in layers:
         if start:
-            x = dist_api.hint(x)
+            x = dist_api.stream(x)
         x, a = block_fn(block, cfg, kind, x, positions, attn_impl)
         if a is not None:
             aux = aux + a
@@ -235,10 +242,18 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x, aux = apply_layers(zip(params["layers"], layer_kinds(cfg),
                               unit_starts(cfg)),
                           cfg, x, positions, attn_impl, block_fn)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = x @ head.to(x.dtype)
-    return logits, aux
+    return _logits(params, cfg, x), aux
+
+
+def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the LM head (the tied embedding's transpose
+    without a ``head``) over the stream ``x``."""
+    from ..dist import api as dist_api
+    top = dist_api.gather_weights(
+        {k: params[k] for k in ("embed", "head", "final_norm") if k in params})
+    x = apply_norm(top["final_norm"], x, cfg.norm)
+    head = top["embed"].T if cfg.tie_embeddings else top["head"]
+    return x @ head.to(x.dtype)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
@@ -262,15 +277,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     picks. The f32 logits, the one-hot mask and the select are pinned to
     the vocab sharding (``dist.api.hint_vocab``), as JAX pins them, so a
     vocab-sharded ``DTensor`` never replicates V (a gather along a sharded
-    vocab dim is a case DTensor's sharding propagation cannot take)."""
+    vocab dim is a case DTensor's sharding propagation cannot take), and
+    ``logsumexp`` reduces the local shards (``dist.api.logsumexp``)."""
     from ..dist import api as dist_api
     lf = dist_api.hint_vocab(logits.float())
-    lse = torch.logsumexp(lf, dim=-1)
+    lse = dist_api.logsumexp(lf, -1)
     vocab_iota = torch.arange(lf.shape[-1], device=labels.device)
     onehot = dist_api.hint_vocab(labels.long()[..., None] == vocab_iota)
     label_logit = dist_api.hint_vocab(
         torch.where(onehot, lf, 0.0)).sum(-1)
-    return (lse - label_logit).mean()
+    # pinned per token, so the mean's gradient does not re-lay the logits
+    return dist_api.stream(lse - label_logit).mean()
 
 
 # ----------------------------------------------------------------------------
@@ -308,6 +325,8 @@ def _decode_block(block, cfg: ModelConfig, kind: str, x: torch.Tensor,
     """One layer of a decode step. ``cache`` holds the group's stacked
     leaves, copies that this layer writes its slice ``ci`` of; ``attn`` is
     the step's (write index, validity mask, RoPE tables)."""
+    from ..dist import api as dist_api
+    block = dist_api.gather_weights(block)
     h = apply_norm(block["norm1"], x, cfg.norm)
     if kind == "attn":
         x = x + attn_mod.decode_attention_into(
@@ -341,6 +360,7 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     index (a ring slot, ``len % capacity``, for the hybrid family's local
     attention), the validity mask and the RoPE tables are made once a
     step."""
+    from ..dist import api as dist_api
     b = tokens.shape[0]
     cache_len = cache["len"]
     if positions is None:
@@ -358,13 +378,15 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
     layers = iter(params["layers"])
     new_groups = []
     for (unit, count), gc in zip(layer_groups(cfg), cache["groups"]):
-        new = [{name: leaf.clone() for name, leaf in c.items()} for c in gc]
+        # an SSD state [L,B,H,N,P] is laid out by heads, as its layers
+        # step them (``ssm.decode_ssm``)
+        new = [{name: dist_api.split_model(leaf.clone(), 2, batch_dim=1)
+                if kind == "ssm" and name == "state" else leaf.clone()
+                for name, leaf in c.items()} for kind, c in zip(unit, gc)]
         for ci in range(count):
             for kind, unit_cache in zip(unit, new):
                 x = _decode_block(next(layers), cfg, kind, x, unit_cache, ci,
                                   attn)
         new_groups.append(new)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = x @ head.to(x.dtype)
-    return logits, {"len": cache_len + 1, "groups": new_groups}
+    return _logits(params, cfg, x), {"len": cache_len + 1,
+                                     "groups": new_groups}

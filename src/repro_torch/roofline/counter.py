@@ -21,7 +21,11 @@ DTensor issues), so each count is one device's. It counts
   sequence-sized dims, by ``hlo_stats._is_scores_class``'s rule), the
   traffic a flash kernel keeps on chip, and bytes by aten op;
 * **collectives** DTensor issues (``_c10d_functional``): kind, bytes,
-  and the group's ranks, priced by :func:`.analysis.ring_seconds`;
+  and the group's ranks, priced by :func:`.analysis.ring_seconds`. The
+  bytes are the result's, as ``analysis.parse_collectives`` reads them
+  off each collective's HLO result shape in the JAX package: the
+  gathered tensor of an all-gather, the scattered shard of a
+  reduce-scatter (whose ring time is priced on its operand);
 * the **peak of live bytes** of the storages the step's ops create, from
   the moment an op returns a new storage to the moment the storage is
   freed (a weak reference to the storage).
@@ -62,17 +66,18 @@ _FREE = {"aten._unsafe_view", "aten.empty", "aten.empty_strided",
          "aten.empty_like", "aten.lift_fresh", "aten.detach",
          "aten.alias", "aten._local_scalar_dense"}
 
-#: ``_c10d_functional`` op → (collective kind, which bytes price it)
+#: ``_c10d_functional`` op → (collective kind, which bytes price its
+#: ring time); the bytes counted are always the result's
 _COLLECTIVES = {
-    "all_reduce": ("all-reduce", "in"),
-    "all_reduce_": ("all-reduce", "in"),
-    "all_reduce_coalesced": ("all-reduce", "in"),
+    "all_reduce": ("all-reduce", "out"),
+    "all_reduce_": ("all-reduce", "out"),
+    "all_reduce_coalesced": ("all-reduce", "out"),
     "all_gather_into_tensor": ("all-gather", "out"),
     "all_gather_into_tensor_coalesced": ("all-gather", "out"),
     "reduce_scatter_tensor": ("reduce-scatter", "in"),
     "reduce_scatter_tensor_coalesced": ("reduce-scatter", "in"),
-    "all_to_all_single": ("all-to-all", "in"),
-    "shard_dim_alltoall": ("all-to-all", "in"),
+    "all_to_all_single": ("all-to-all", "out"),
+    "shard_dim_alltoall": ("all-to-all", "out"),
 }
 _COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
 
@@ -175,11 +180,12 @@ class OpCounter(TorchDispatchMode):
         kind, side = _COLLECTIVES[opname]
         group = next(a for a in reversed(args) if isinstance(a, str))
         ranks = get_process_group_ranks(_resolve_process_group(group))
-        nbytes = sum(_nbytes(t) for t in (ins if side == "in" else outs))
+        nbytes = sum(_nbytes(t) for t in outs)
+        priced = sum(_nbytes(t) for t in ins) if side == "in" else nbytes
         st = self.stats
         st.collective_bytes[kind] = st.collective_bytes.get(kind, 0) + nbytes
         st.collective_seconds[kind] = st.collective_seconds.get(kind, 0.0) \
-            + ring_seconds(kind, nbytes, ranks)
+            + ring_seconds(kind, priced, ranks)
         st.collective_count += 1
 
     def _track(self, t: torch.Tensor) -> None:

@@ -117,6 +117,74 @@ def test_collective_all_reduce_priced_by_the_ring():
         2 * 4 * 1024 * 4 * 3 / 4 / roof.NVLINK_BW, rel=1e-12)
 
 
+def test_collective_bytes_follow_the_jax_convention():
+    """One all-gather, all-reduce and reduce-scatter of one tensor on a
+    2 × 4 mesh count the same bytes in the JAX package's
+    ``parse_collectives`` (a ``shard_map`` compiled for eight host
+    devices) and in the port's counter (DTensor redistributions on eight
+    fake ranks): each collective by its result, so a reduce-scatter by
+    the shard it leaves, a quarter of its operand here."""
+    proc = _run("""
+        import json, os
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+        import jax, jax.numpy as jnp
+        from jax.sharding import PartitionSpec as P
+        from repro.roofline.analysis import parse_collectives
+        import torch
+        from repro_torch.launch.dryrun import start_fake_group
+        start_fake_group(8)
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        from repro_torch.roofline.counter import count
+
+        jmesh = jax.make_mesh((2, 4), ("data", "model"))
+        x = jnp.zeros((16, 64), jnp.float32)
+
+        def jax_bytes(fn, in_spec, out_spec):
+            f = jax.jit(jax.shard_map(fn, mesh=jmesh, in_specs=in_spec,
+                                      out_specs=out_spec, check_vma=False))
+            return parse_collectives(
+                f.lower(x).compile().as_text()).bytes_by_kind
+
+        mesh = init_device_mesh("cpu", (2, 4),
+                                mesh_dim_names=("data", "model"))
+
+        def port_bytes(local, start, end, shape):
+            t = DTensor.from_local(torch.empty(local, device="meta"), mesh,
+                                   start, run_check=False,
+                                   shape=torch.Size(shape),
+                                   stride=(shape[1], 1))
+            _, st = count(lambda: t.redistribute(mesh, end), "meta")
+            return st.collective_bytes
+
+        whole = [Replicate(), Replicate()]
+        cols = [Replicate(), Shard(1)]
+        partial = [Replicate(), Partial()]
+        print(json.dumps({
+            "all-gather": [
+                jax_bytes(lambda a: jax.lax.all_gather(a, "model", axis=1,
+                                                       tiled=True),
+                          P(None, "model"), P(None, None)),
+                port_bytes((16, 16), cols, whole, (16, 64))],
+            "all-reduce": [
+                jax_bytes(lambda a: jax.lax.psum(a, "model"),
+                          P(None, "model"), P(None, None)),
+                port_bytes((16, 16), partial, whole, (16, 16))],
+            "reduce-scatter": [
+                jax_bytes(lambda a: jax.lax.psum_scatter(
+                    a, "model", scatter_dimension=1, tiled=True),
+                    P(None, None), P(None, "model")),
+                port_bytes((16, 64), partial, cols, (16, 64))]}))
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = __import__("json").loads(proc.stdout.strip().splitlines()[-1])
+    want = {"all-gather": 16 * 64 * 4, "all-reduce": 16 * 16 * 4,
+            "reduce-scatter": 16 * 16 * 4}
+    for kind, (jax_counts, port_counts) in got.items():
+        assert jax_counts == port_counts == {kind: want[kind]}, (kind, got)
+
+
 def test_local_flops_count_replicated_work_where_flop_counter_mode_does_not():
     proc = _run("""
         import json
