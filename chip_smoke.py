@@ -7,15 +7,15 @@ Builds the hand-written kernels of ``src/repro_torch/kernels/csrc`` with
 times it beside that plain version and one library call, then drives the
 port's main path through the entry points a user calls:
 
-* the ``m_mult`` kernel actor (paper Listings 1+2) at 4096x4096 f32, at
-  the quickstart's 512x512 f32 and at 4096x4096 bf16 (B1's ``wgmma``
-  kernel). B1 is also held at a ragged and a misaligned shape in both
+* the ``m_mult`` kernel actor (paper Listings 1+2) at 4096x4096 f32 and
+  at 4096x4096 bf16 (B1's ``wgmma`` kernel; the quickstart example drives
+  it at 512x512 f32). B1 is also held at a ragged and a misaligned shape in both
   dtypes and timed in both beside ``torch.matmul`` (device time and host
   time a call);
 * ``build_wah_index`` over 2**24 uint32 values of cardinality 64 (paper
-  §4), bit-exact against ``impl="ref"`` on the card, decoded against
-  ``np.flatnonzero`` and held against the sequential numpy builder at
-  2**17;
+  §4), bit-exact against ``impl="ref"`` on the card and decoded against
+  ``np.flatnonzero`` (the wah_indexing example holds its 2**17 build to
+  the CPU's);
 * the Listing 5 ``wah_index_pipeline_actors`` at k = 2**23, staged and
   fused;
 * the paper's §5.4 fractional offload of a 1920x1080 Mandelbrot frame
@@ -120,6 +120,22 @@ port's main path through the entry points a user calls:
   compute and memory times and its predicted peak of live bytes (the
   prefill timed with B6, the train step with the plain attention).
 
+* the user examples (``repro_torch.examples``), each through its ``run``
+  on the card: ``quickstart`` (Listings 1+2, B1 f32 at 512^3),
+  ``wah_indexing`` at its 2**17 values (B3-B5; bit for bit its run on the
+  CPU), ``graph_diamond`` (the typed diamond, one read-back, the build
+  error's node path), ``serve_lm`` at qwen3-1.7b's published widths (bf16,
+  8 requests x 32 greedy steps, tok/s; the example's step replayed
+  outside the actor picks the same tokens: a check of the actor's
+  wiring, as the decode step runs no hand-written kernel),
+  ``train_lm`` at qwen3-1.7b's widths cut to 2 of its 28 layers (20 steps
+  of 8 x 512, a fault at step 15, a checkpoint every 10: one recovery,
+  the loss at batch 0 lower after), and ``dist_pipeline`` (two processes
+  on the card: one spill pair a hop, exactly-once after the worker's
+  death). B1 on the quickstart's matrices and B3-B5 at the 2**17 build's
+  shapes are also held against their plain versions and timed beside
+  them, by the helpers that time the kernels' main rows.
+
 Every B1, B3 and B6 kernel's registers and spill bytes are printed (none
 may spill), and ``cuobjdump -sass`` of the B1 and B6 libraries shows which
 kernels run on the tensor cores (``HGMMA``, fed by ``UTMALDG``) and which
@@ -135,8 +151,8 @@ reads them after it; a kernel of the phase that was not launched fails
 the run, and so does a ``build_wah_index`` that is not one
 ``radix_histogram`` and four ``radix_onesweep`` launches. Any failure
 exits non-zero. The serve, mesh, train, family and distribution-layer
-(``{"dist": ...}``) and roofline phases each print a JSON line of their
-readings; the
+(``{"dist": ...}``), roofline and examples phases each print a JSON line
+of their readings; the
 run's total seconds follow, and the last two lines are a JSON object with
 one entry per kernel and the JSON result line.
 
@@ -176,7 +192,6 @@ HOLD_CYCLES = 100_000_000
 SASS_OPS = ("HGMMA", "UTMALDG", "FFMA", "HMMA")
 
 MM_N = 4096
-QUICKSTART_N = 512
 #: B1's edge shapes: tiles ragged in M, N and K; and 4096^3 with A one
 #: element into its allocation (off 16 bytes: 4-byte copies in f32, a
 #: pitched copy before TMA in bf16)
@@ -187,7 +202,6 @@ MM_RAGGED = (4095, 4097, 4093)
 MM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WAH_N = 1 << 24
 WAH_CARD = 64
-WAH_CHECK_N = 1 << 17
 #: the all-equal keys of B3's check: every pass sees one digit
 SORT_EQUAL_KEY = 0x9E3779B9
 PIPE_K = 1 << 23
@@ -407,6 +421,22 @@ ROOF_SHAPES = {"card_prefill": (PREFILL_S, PREFILL_B, "prefill"),
                "card_train": (TRAIN_S, TRAIN_B, "train")}
 ROOF_PLAN = {"attn_impl": "ref"}
 ROOF_REPS = 5
+#: the examples phase (repro_torch.examples), each through its run() on
+#: cuda:0: quickstart (B1 f32 at EXAMPLE_MM_N^3, held to the plain
+#: product), wah_indexing at its default EXAMPLE_WAH_N values (B3-B5)
+#: against run(device="cpu") bit for bit, graph_diamond, serve_lm at
+#: qwen3-1.7b's published widths (bf16, the example's batch of 8 and 32
+#: greedy steps from token 0; its step replayed outside the actor picks
+#: the same tokens), train_lm at qwen3-1.7b's published widths cut to
+#: EXAMPLE_TRAIN_LAYERS of its 28 layers (EXAMPLE_TRAIN_STEPS steps of
+#: EXAMPLE_TRAIN_B x EXAMPLE_TRAIN_S, a fault at EXAMPLE_TRAIN_FAIL_AT; the
+#: example checkpoints every 10 steps, so the restore replays steps 10-14;
+#: at 151936 words a checkpoint of 2 layers' params, m and v is about 4
+#: GB), and dist_pipeline (two processes on the card)
+EXAMPLE_MM_N = 512
+EXAMPLE_WAH_N = 1 << 17
+EXAMPLE_TRAIN_LAYERS, EXAMPLE_TRAIN_B, EXAMPLE_TRAIN_S = 2, 8, 512
+EXAMPLE_TRAIN_STEPS, EXAMPLE_TRAIN_FAIL_AT = 20, 15
 
 
 def log(msg: str) -> None:
@@ -2311,6 +2341,250 @@ def roofline_phase(run_phase, card: str, dev) -> dict:
     return out
 
 
+def matmul_row(x, y, reps: int) -> dict:
+    """B1's ``x @ y`` held to its plain version within MM_TOL, and its
+    time beside the plain version's and ``torch.matmul``'s, its bound and
+    the host's time a call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.matmul import matmul as matmul_kernel
+    dt, tol = x.dtype, MM_TOL[x.dtype]
+    (m, k), n = x.shape, y.shape[1]
+    got, want = matmul_kernel(x, y), ref.matmul(x, y)
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"matmul {dt} {m}x{k}x{n} disagrees with the plain version beyond "
+          f"{tol}")
+    peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
+    return dict(
+        max_abs_err=max_abs_err(got.float(), want.float()),
+        ms=cuda_ms(lambda: matmul_kernel(x, y), reps),
+        plain_ms=cuda_ms(lambda: ref.matmul(x, y), reps),
+        bound_ms=max(bytes_ms((m * k + k * n + m * n) * x.element_size()),
+                     ops_ms(2.0 * m * n * k, peak)),
+        bound_by="operations",
+        library_ms=cuda_ms(lambda: torch.matmul(x, y), reps),
+        host_us=host_us(lambda: matmul_kernel(x, y), 20),
+        library_host_us=host_us(lambda: torch.matmul(x, y), 20))
+
+
+def sort_row(keys, pos, reps: int, plain_reps: int) -> dict:
+    """``ops.radix_sort`` (one radix_histogram and 4 radix_onesweep
+    passes) of uint32 ``keys`` with the int32 payload ``pos``, bit for bit
+    its plain version's, timed beside it and ``torch.sort`` of the keys as
+    int64; its bound is the keys and payload read and written once."""
+    from repro_torch.kernels import ops, ref
+    got_k, got_p = ops.radix_sort(keys, pos)
+    want_k, want_p = ops.radix_sort(keys, pos, impl="ref")
+    check(words_equal(got_k, want_k) and torch.equal(got_p, want_p),
+          f"ops.radix_sort n={keys.numel()} differs from its plain version")
+    wide = ref.u32_to_i64(keys)
+    return dict(
+        max_abs_err=max(max_abs_err(got_k, want_k),
+                        max_abs_err(got_p, want_p)),
+        ms=cuda_ms(lambda: ops.radix_sort(keys, pos), reps),
+        plain_ms=cuda_ms(lambda: ops.radix_sort(keys, pos, impl="ref"),
+                         plain_reps),
+        bound_ms=bytes_ms(keys.numel() * 16), bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.sort(wide, stable=True), reps),
+        library="torch.sort(stable=True) of the keys as int64",
+        host_us=host_us(lambda: ops.radix_sort(keys, pos), 10),
+        library_host_us=host_us(lambda: torch.sort(wide, stable=True), 10))
+
+
+def interleave_row(fills, lits, reps: int) -> dict:
+    """B4's interleave of uint32 ``fills`` and ``lits``, bit for bit its
+    plain version's, timed beside it and a stack of the two; its bound is
+    both inputs read and the interleave written once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wah import wah_interleave
+    n = fills.numel()
+    out_i, out_p = wah_interleave(fills, lits), ref.wah_interleave(fills, lits)
+    check(words_equal(out_i, out_p), f"wah_interleave n={n} disagrees")
+    fv, lv = fills.view(torch.int32), lits.view(torch.int32)
+    return dict(
+        max_abs_err=max_abs_err(out_i, out_p),
+        ms=cuda_ms(lambda: wah_interleave(fills, lits), reps),
+        plain_ms=cuda_ms(lambda: ref.wah_interleave(fills, lits), reps),
+        bound_ms=bytes_ms(n * 4 * 2 + n * 8), bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.stack((fv, lv), 1).reshape(-1),
+                           reps),
+        library="torch.stack((f, l), 1).reshape(-1)")
+
+
+def compact_row(words, reps: int, plain_reps: int) -> dict:
+    """B5's block compaction of uint32 ``words`` (zeros dropped), bit for
+    bit its plain version's, timed beside it and ``x[x != 0]``; its bound
+    is the words read, the blocks written and a count a block."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stream_compact import local_compact
+    n = words.numel()
+    bl, cn = local_compact(words)
+    bl_p, cn_p = ref.local_compact(words)
+    check(words_equal(bl, bl_p) and torch.equal(cn, cn_p),
+          f"local_compact n={n} disagrees")
+    w32 = words.view(torch.int32)
+    return dict(
+        max_abs_err=max_abs_err(bl, bl_p),
+        ms=cuda_ms(lambda: local_compact(words), reps),
+        plain_ms=cuda_ms(lambda: ref.local_compact(words), plain_reps),
+        bound_ms=bytes_ms(n * 4 + n * 4 + (n // 256) * 4), bound_by="bytes",
+        library_ms=cuda_ms(lambda: w32[w32 != 0], reps), library="x[x != 0]")
+
+
+def example_kernel_rows(rows, quick: dict, values: np.ndarray, dev) -> None:
+    """B1 on the quickstart's own 512^2 f32 matrices and B3-B5 at the
+    shapes ``build_wah_index`` gives them for the WAH example's 2^17
+    ``values`` (a sort of its 2^17 keys with an int32 payload, the
+    interleave of 2^17 fills and literals, the compaction of their 2^18
+    words), by the main rows' helpers: sub-rows of the kernels' entries.
+    These launches do not count."""
+    from repro_torch.kernels import ref
+    gen = np.random.default_rng(7)
+    a, b = (torch.from_numpy(quick[k]).to(dev) for k in ("m1", "m2"))
+    rows["matmul"]["quickstart_f32_512"] = dict(
+        matmul_row(a, b, 50), library="torch.matmul f32 (TF32 off)")
+    m = values.shape[0]
+    rows["radix_pass"]["wah_example_2^17"] = dict(
+        sort_row(torch.from_numpy(values).to(dev),
+                 torch.arange(m, dtype=torch.int32, device=dev), 50, 10),
+        what="ops.radix_sort: 1 radix_histogram + 4 radix_onesweep")
+    fills, lits = (ref.i64_to_u32(torch.from_numpy(
+        gen.integers(0, 2 ** 32, m, dtype=np.int64)).to(dev))
+        for _ in range(2))
+    rows["wah_interleave"]["wah_example_2^17"] = interleave_row(fills, lits,
+                                                                50)
+    words = torch.where(torch.from_numpy(gen.random(2 * m) < 0.5).to(dev),
+                        torch.cat([fills, lits]).view(torch.int32),
+                        0).view(torch.uint32)
+    rows["local_compact"]["wah_example_2^18"] = compact_row(words, 50, 10)
+    for name, key in (("matmul", "quickstart_f32_512"),
+                      ("radix_pass", "wah_example_2^17"),
+                      ("wah_interleave", "wah_example_2^17"),
+                      ("local_compact", "wah_example_2^18")):
+        r = rows[name][key]
+        log(f"{name} at the examples' {key}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); max_abs_err "
+            f"{r['max_abs_err']}")
+
+
+def examples_phase(run_phase, rows, dev) -> dict:
+    """The six user examples of ``repro_torch.examples``, each through its
+    ``run`` on the card (see EXAMPLE_*); returns each one's readings."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.dist.step import build_serve_step
+    from repro_torch.examples import (dist_pipeline, graph_diamond,
+                                      quickstart, serve_lm, train_lm,
+                                      wah_indexing)
+    from repro_torch.kernels import ref
+    from repro_torch.models import Model
+    out = {}
+
+    def timed(name, needs, body, functions=None):
+        t0 = time.perf_counter()
+        result = run_phase(name, needs, body, functions)
+        return result, time.perf_counter() - t0
+
+    quick, wall = timed("example quickstart m_mult 512x512 f32", ["matmul"],
+                        quickstart.run)
+    want = ref.matmul(torch.from_numpy(quick["m1"]).to(dev),
+                      torch.from_numpy(quick["m2"]).to(dev)).cpu().numpy()
+    check(quick["result"].shape == (EXAMPLE_MM_N,) * 2
+          and np.isfinite(quick["result"]).all(), "quickstart: bad product")
+    np.testing.assert_allclose(quick["result"], want,
+                               rtol=MM_TOL[torch.float32],
+                               atol=MM_TOL[torch.float32])
+    out["quickstart"] = dict(wall_s=wall, norm=quick["norm"],
+                             platforms=[repr(p) for p in quick["platforms"]])
+    log(f"example quickstart: m_mult ok, equal to the plain product within "
+        f"{MM_TOL[torch.float32]}, |result|_F = {quick['norm']:.1f}")
+
+    r, wall = timed(f"example wah_indexing n={EXAMPLE_WAH_N}",
+                    ["radix_pass", "wah_interleave", "local_compact"],
+                    wah_indexing.run,
+                    {"radix_histogram": 1, "radix_onesweep": 4,
+                     "radix_pass": 0})
+    host = wah_indexing.run(device="cpu")
+    for key in ("words", "starts", "counts", "out"):
+        check(r[key].dtype == host[key].dtype and
+              np.array_equal(r[key], host[key]),
+              f"wah_indexing: {key} differs from run(device='cpu')")
+    check(r["n_words"] == host["n_words"] and r["total"] == host["total"],
+          "wah_indexing: n_words or total differs from the CPU's")
+    out["wah_indexing"] = dict(wall_s=wall, build_s=r["seconds"],
+                               n_words=r["n_words"], total=r["total"])
+    log(f"example wah_indexing: {r['n_words']} words, build "
+        f"{r['seconds']:.4f} s, pipeline {r['total']} words; bit for bit "
+        "the CPU's")
+    example_kernel_rows(rows, quick, r["values"], dev)
+
+    r, wall = timed("example graph_diamond", [], graph_diamond.run)
+    check(set(r["placements"].values()) == {f"{dev.type}:{dev.index or 0}"},
+          f"graph_diamond placed off the card: {r['placements']}")
+    check(r["readbacks"] == 1 and r["transfers"] <= 1,
+          f"graph_diamond: {r['transfers']} transfers, {r['readbacks']} "
+          "read-backs (the input in, the output out only)")
+    check(r["error"].startswith("bad/double:"),
+          f"graph_diamond: build error {r['error']!r}")
+    out["graph_diamond"] = dict(wall_s=wall, transfers=r["transfers"],
+                                readbacks=r["readbacks"], error=r["error"])
+
+    cfg = get_config("qwen3-1.7b")
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    name = f"example serve_lm qwen3-1.7b {serve_lm.BATCH}x{serve_lm.STEPS}"
+    r, wall = timed(name, [], lambda: serve_lm.run(cfg, params))
+    # the example returns tokens: its step (the plain attention, the
+    # Model's default) run outside the actor and fed them one at a time
+    # must pick each next one, which holds the actor's wiring (the cache
+    # carried from message to message); a step's logits must be finite
+    toks = torch.from_numpy(r["tokens"]).to(dev).long()
+    step = build_serve_step(model)
+    cache = model.init_cache(serve_lm.BATCH, serve_lm.STEPS + 1)
+    with torch.no_grad():
+        for t in range(serve_lm.STEPS):
+            nxt, logits, cache = step(params, cache, toks[:, t:t + 1])
+            check(torch.equal(nxt.long(), toks[:, t + 1:t + 2]) and
+                  bool(torch.isfinite(logits).all()),
+                  f"{name}: step {t} picked other tokens than the example's "
+                  "actor, or its logits are not finite")
+    out["serve_lm"] = dict(wall_s=wall, decode_s=r["seconds"],
+                           tok_s=r["tok_s"], replayed_steps=serve_lm.STEPS)
+    log(f"example serve_lm: {r['tok_s']:.1f} tok/s on the card "
+        f"({serve_lm.STEPS} steps x {serve_lm.BATCH} requests in "
+        f"{r['seconds']:.3f} s); the step replayed outside the actor picks "
+        "the same tokens")
+    del r, params, model, cache, logits, toks
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(cfg, n_layers=EXAMPLE_TRAIN_LAYERS)
+    name = (f"example train_lm qwen3-1.7b {EXAMPLE_TRAIN_LAYERS} layers "
+            f"{EXAMPLE_TRAIN_STEPS} steps of {EXAMPLE_TRAIN_B}x"
+            f"{EXAMPLE_TRAIN_S}")
+    r, wall = timed(name, [], lambda: train_lm.run(
+        tcfg, steps=EXAMPLE_TRAIN_STEPS, batch=EXAMPLE_TRAIN_B,
+        seq=EXAMPLE_TRAIN_S, fail_at=EXAMPLE_TRAIN_FAIL_AT))
+    check(r["steps"] == EXAMPLE_TRAIN_STEPS and r["recoveries"] == 1
+          and r["loss_n"] < r["loss0"] and np.isfinite(r["losses"]).all(),
+          f"{name}: {r}")
+    out["train_lm"] = {k: r[k] for k in ("steps", "recoveries", "fail_at",
+                                         "loss0", "loss_n", "seconds",
+                                         "tok_s")}
+    out["train_lm"]["wall_s"] = wall
+    log(f"example train_lm: loss {r['loss0']:.4f} -> {r['loss_n']:.4f}, "
+        f"{r['recoveries']} recovery, {r['tok_s']:,.0f} tok/s wall on the "
+        "card")
+    torch.cuda.empty_cache()
+
+    r, wall = timed("example dist_pipeline", [], dist_pipeline.run)
+    check(r["device"] == str(dev) and r["chunks"] == 12,
+          f"dist_pipeline: {r}")
+    out["dist_pipeline"] = dict(wall_s=wall, rel_err=r["rel_err"],
+                                reissued=r["reissued"],
+                                sources=sorted(r["sources"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2322,8 +2596,7 @@ def main() -> int:
     from repro_torch.core import ActorSystem
     from repro_torch.core.memref import registry
     from repro_torch.examples.mandelbrot_offload import run as run_offload
-    from repro_torch.indexing import (build_wah_index, build_wah_index_numpy,
-                                      decode_wah_bitmap,
+    from repro_torch.indexing import (build_wah_index, decode_wah_bitmap,
                                       wah_index_pipeline_actors)
     from repro_torch.kernels import (FLASH_ATTENTION, KERNELS, LOCAL_COMPACT,
                                      MANDELBROT, MATMUL, RADIX_PASS,
@@ -2343,7 +2616,6 @@ def main() -> int:
                                                 radix_onesweep, radix_pass)
     from repro_torch.kernels.radix_sort import kernel_info as radix_kernel_info
     from repro_torch.kernels.stream_compact import local_compact
-    from repro_torch.kernels.wah import wah_interleave
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2411,27 +2683,12 @@ def main() -> int:
     mm = {}
     for x, y in ((a, b), (a.bfloat16(), b.bfloat16())):
         dt, tol = x.dtype, MM_TOL[x.dtype]
-        got, want = matmul_kernel(x, y), ref.matmul(x, y)
-        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-              f"matmul {dt} kernel disagrees with the plain version beyond "
-              f"{tol}")
-        peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
-        mm[dt] = dict(
-            max_abs_err=max_abs_err(got.float(), want.float()),
-            ms=cuda_ms(lambda: matmul_kernel(x, y), 10),
-            plain_ms=cuda_ms(lambda: ref.matmul(x, y), 10),
-            bound_ms=max(bytes_ms(3 * MM_N * MM_N * x.element_size()),
-                         ops_ms(2.0 * MM_N ** 3, peak)),
-            library_ms=cuda_ms(lambda: torch.matmul(x, y), 10),
-            host_us=host_us(lambda: matmul_kernel(x, y), 20),
-            library_host_us=host_us(lambda: torch.matmul(x, y), 20))
-        r = mm[dt]
+        r = mm[dt] = matmul_row(x, y, 10)
         log(f"matmul {dt} {MM_N}^3: kernel {r['ms']:.4f} ms, torch.matmul "
             f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), "
             f"bound {r['bound_ms']:.4f} ms; host {r['host_us']:.1f} us a "
             f"call, torch.matmul {r['library_host_us']:.1f} us; max_abs_err "
             f"{r['max_abs_err']} (tol {tol} rel+abs)")
-        del got, want
     # ragged tiles in M, N and K; an operand 4 (2) bytes off 16
     edges = []
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -2460,15 +2717,10 @@ def main() -> int:
                 f"(tol {tol} rel+abs)")
             del got, want
         del flat
-    f32 = mm[torch.float32]
     rows["matmul"] = dict(
-        kernel=MATMUL, max_abs_err=f32["max_abs_err"], ms=f32["ms"],
-        plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
-        bound_by="operations", library_ms=f32["library_ms"],
-        library="torch.matmul f32 (TF32 off)", host_us=f32["host_us"],
-        library_host_us=f32["library_host_us"],
-        bf16=dict(mm[torch.bfloat16], bound_by="operations",
-                  library="torch.matmul bf16"),
+        mm[torch.float32], kernel=MATMUL,
+        library="torch.matmul f32 (TF32 off)",
+        bf16=dict(mm[torch.bfloat16], library="torch.matmul bf16"),
         edges=edges, instantiations=mm_info)
     del a, b, x, y
 
@@ -2518,6 +2770,7 @@ def main() -> int:
             "at shifts 0, 8, 16, 24")
         del got, want
     sorted_k, perm = ops.radix_sort(rand_keys, pos)
+    sort = sort_row(rand_keys, pos, 10, 3)
     wide_keys = ref.u32_to_i64(rand_keys)
     narrow_keys = rand_keys.view(torch.int32)
     lib_k, lib_perm = torch.sort(wide_keys, stable=True)
@@ -2535,12 +2788,12 @@ def main() -> int:
                                               scratch=scratch), reps)
 
     rows["radix_pass"] = dict(
-        kernel=RADIX_PASS, max_abs_err=sort_err,
+        kernel=RADIX_PASS, max_abs_err=max(sort_err, sort["max_abs_err"]),
         ms=onesweep_ms(rand_keys, hist[0], 0, 20),
         plain_ms=cuda_ms(lambda: ref.radix_onesweep(rand_keys, pos, hist[0],
                                                     8, 0), 3),
         bound_ms=bytes_ms(WAH_N * 16), bound_by="bytes",
-        library_ms=cuda_ms(lambda: torch.sort(wide_keys, stable=True), 10),
+        library_ms=sort["library_ms"],
         library="torch.sort(stable=True) of the keys as int64 (values and "
                 "permutation), against radix_sort_ms",
         onesweep_one_digit_ms=onesweep_ms(keys, wah_hist[1], 8, 20),
@@ -2548,19 +2801,15 @@ def main() -> int:
         histogram_plain_ms=cuda_ms(lambda: ref.radix_histogram(rand_keys, 8),
                                    3),
         histogram_bound_ms=bytes_ms(WAH_N * 4),
-        radix_sort_ms=cuda_ms(lambda: ops.radix_sort(rand_keys, pos), 10),
-        radix_sort_plain_ms=cuda_ms(lambda: ops.radix_sort(
-            rand_keys, pos, impl="ref"), 3),
+        radix_sort_ms=sort["ms"], radix_sort_plain_ms=sort["plain_ms"],
         # the sort's own bytes (keys and payload in and out), and the bytes
         # of this design: the histogram's read and 4 passes of 16 B a key
         # (the int32 payload rides through the passes)
-        radix_sort_bound_ms=bytes_ms(WAH_N * 16),
+        radix_sort_bound_ms=sort["bound_ms"],
         radix_sort_design_bound_ms=bytes_ms(WAH_N * (4 + 4 * 16)),
         library_int32_ms=cuda_ms(lambda: torch.sort(narrow_keys, stable=True),
                                  10),
-        host_us=host_us(lambda: ops.radix_sort(rand_keys, pos), 10),
-        library_host_us=host_us(lambda: torch.sort(wide_keys, stable=True),
-                                10),
+        host_us=sort["host_us"], library_host_us=sort["library_host_us"],
         radix_pass_ms=radix_pass_ms, instantiations=radix_info)
     r = rows["radix_pass"]
     r["onesweep_ms"] = r["ms"]
@@ -2578,42 +2827,24 @@ def main() -> int:
     words = torch.where(torch.from_numpy(rng.random(2 * WAH_N) < 0.5).to(dev),
                         torch.cat([rand_keys, rand_keys]).view(torch.int32),
                         0).view(torch.uint32)
-    for drop in (0, 7):
-        bl, cn = local_compact(words, drop_value=drop)
-        bl_p, cn_p = ref.local_compact(words, drop_value=drop)
-        check(words_equal(bl, bl_p) and torch.equal(cn, cn_p),
-              f"local_compact kernel disagrees (drop_value={drop})")
+    bl, cn = local_compact(words, drop_value=7)
+    bl_p, cn_p = ref.local_compact(words, drop_value=7)
+    check(words_equal(bl, bl_p) and torch.equal(cn, cn_p),
+          "local_compact kernel disagrees (drop_value=7)")
     comp, total = ops.stream_compact(words)
     comp_p, total_p = ref.stream_compact(words)
     check(words_equal(comp, comp_p) and int(total) == int(total_p),
           "ops.stream_compact disagrees with the plain compaction")
-    n2 = 2 * WAH_N
-    rows["local_compact"] = dict(
-        kernel=LOCAL_COMPACT, max_abs_err=max_abs_err(bl, bl_p),
-        ms=cuda_ms(lambda: local_compact(words), 20),
-        plain_ms=cuda_ms(lambda: ref.local_compact(words), 3),
-        bound_ms=bytes_ms(n2 * 4 + n2 * 4 + (n2 // 256) * 4),
-        bound_by="bytes",
-        library_ms=cuda_ms(lambda: words.view(torch.int32)[words.view(torch.int32) != 0], 10),
-        library="x[x != 0]")
+    rows["local_compact"] = dict(compact_row(words, 20, 3),
+                                 kernel=LOCAL_COMPACT)
     log(f"local_compact n=2^25: bit-exact for drop_value 0 and 7")
     del bl, cn, bl_p, cn_p, comp, comp_p
 
     lits = torch.cat([rand_keys[1:], rand_keys[:1]])
-    out_i = wah_interleave(rand_keys, lits)
-    out_p = ref.wah_interleave(rand_keys, lits)
-    check(words_equal(out_i, out_p), "wah_interleave kernel disagrees")
-    f32v, l32v = rand_keys.view(torch.int32), lits.view(torch.int32)
-    rows["wah_interleave"] = dict(
-        kernel=WAH_INTERLEAVE, max_abs_err=max_abs_err(out_i, out_p),
-        ms=cuda_ms(lambda: wah_interleave(rand_keys, lits), 20),
-        plain_ms=cuda_ms(lambda: ref.wah_interleave(rand_keys, lits), 20),
-        bound_ms=bytes_ms(WAH_N * 4 * 2 + WAH_N * 8),
-        bound_by="bytes",
-        library_ms=cuda_ms(lambda: torch.stack((f32v, l32v), 1).reshape(-1), 20),
-        library="torch.stack((f, l), 1).reshape(-1)")
+    rows["wah_interleave"] = dict(interleave_row(rand_keys, lits, 20),
+                                  kernel=WAH_INTERLEAVE)
     log("wah_interleave n=2^24: bit-exact")
-    del words, out_i, out_p, lits, rand_keys, keys, pos
+    del words, lits, rand_keys, keys, pos
     torch.cuda.empty_cache()
 
     view = ref.mandelbrot_view(MANDEL_W, MANDEL_H, **MANDEL_VIEW)
@@ -2905,8 +3136,7 @@ def main() -> int:
     with ActorSystem(name="chip_smoke") as system:
         check(system.opencl_manager().find_device().torch_device == dev,
               "the default device is not cuda:0")
-        for n, dt in ((QUICKSTART_N, torch.float32), (MM_N, torch.float32),
-                      (MM_N, torch.bfloat16)):
+        for n, dt in ((MM_N, torch.float32), (MM_N, torch.bfloat16)):
             worker, m1, m2 = spawn_m_mult(system, n, rng, dt)
             worker.ask(m1, m2)      # first call: build and warm up
             result = run_phase(f"m_mult {n}x{n} {dt}", ["matmul"],
@@ -2943,15 +3173,6 @@ def main() -> int:
             np.testing.assert_array_equal(got_pos, np.flatnonzero(values_np == v))
         log(f"build_wah_index n=2^24: {n_words} words, bit-exact against "
             "impl='ref', 3 bitmaps round-trip")
-        small = values_np[:WAH_CHECK_N]
-        s_words, s_n, s_starts, s_counts = build_wah_index(
-            torch.from_numpy(small).to(dev), WAH_CARD)
-        r_words, r_n, r_starts, r_counts = build_wah_index_numpy(small, WAH_CARD)
-        check(int(s_n) == r_n, "n_words differs from the numpy builder")
-        np.testing.assert_array_equal(s_counts.cpu().numpy(), r_counts)
-        np.testing.assert_array_equal(s_starts.cpu().numpy(), r_starts)
-        np.testing.assert_array_equal(s_words[:r_n].cpu().numpy(), r_words)
-        log("build_wah_index n=2^17: word streams equal the numpy builder")
         del idx, idx_ref, values
         torch.cuda.empty_cache()
 
@@ -3109,6 +3330,12 @@ def main() -> int:
     # -- the roofline: qwen3-1.7b's prefill and train step, meta and card -----
     print(json.dumps({"roofline": roofline_phase(run_phase, card, dev)}),
           flush=True)
+
+    # -- the user examples: repro_torch.examples on the card --------------------
+    t0 = time.perf_counter()
+    examples = {"card": card, **examples_phase(run_phase, rows, dev)}
+    examples["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"examples": examples}), flush=True)
 
     entries = []
     for kname, row in rows.items():

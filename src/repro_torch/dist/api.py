@@ -41,7 +41,9 @@ Megatron blocks the model is made of:
 * ``local_heads`` and ``split_product`` run a layer on each device's
   own heads from a projection split by columns (the SSD mixer), and
   ``local_map`` a loop over channels on the local shards (the RG-LRU
-  scan); ``logsumexp`` reduces a vocab-split row by local partials.
+  scan); ``logsumexp`` reduces a vocab-split row by local partials;
+* ``idle_split_product`` splits the rows of a product over the data
+  axes that a decode step's small batch leaves idle (the RG-LRU gates).
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ __all__ = [
     "hint", "stream", "hint_vocab", "hint_named", "flatten", "unflatten",
     "logsumexp", "unshard", "index_copy_", "match_layout", "gather_weights",
     "split_model", "local_attention", "local_decode_attention",
-    "local_map", "local_heads", "split_product",
+    "local_map", "local_heads", "split_product", "idle_split_product",
 ]
 
 _state = threading.local()
@@ -591,6 +593,55 @@ def split_product(x, w):
     places = list(whole)
     places[md] = dt.Shard(out.ndim - 1)
     return _from_local(out, mesh, places, tuple(x.shape[:-1]) + (ncol,))
+
+
+def idle_split_product(x, w):
+    """``x @ w`` in a decode step, for ``x`` [B, K] and a weight ``w`` [K,
+    N] whole on every mesh dim, where the batch ``B`` does not split over
+    the data axes. Each device multiplies its own chunk of the ``K`` rows,
+    by its place on ``model`` and on the idle data axes, and the partial
+    sums are reduced onto the batch layout with the columns split over
+    ``model``. GSPMD partitions a decode step's product of one sequence by
+    a replicated weight so, where DTensor would run it whole on every
+    device of the data axes. A batch split over the data axes, ``K`` that
+    the axes do not divide, a weight split on any mesh dim and a plain
+    tensor take the plain product. Forward only."""
+    dt = _dtensor(w)
+    if dt is None:
+        return x @ w
+    mesh = w.device_mesh
+    md = _model_dim(mesh)
+    whole = _batch_placements(mesh, x.shape[0], dt)
+    idle = [i for i in range(mesh.ndim) if i != md and mesh.size(i) > 1
+            and whole[i] == dt.Replicate()]
+    split = [md] if md is not None and mesh.size(md) > 1 else []
+    n, k = math.prod(mesh.size(i) for i in split + idle), w.shape[0]
+    if not idle or k % n or any(p != dt.Replicate() for p in w.placements):
+        return x @ w
+    # this device's chunk of the rows: its model index, then its place on
+    # the idle data axes
+    c = 0
+    for i in split + idle:
+        c = c * mesh.size(i) + mesh.get_local_rank(i)
+    xp, part = list(whole), list(whole)
+    for i in split + idle:
+        part[i] = dt.Partial()
+    if split:
+        xp[md] = dt.Shard(x.ndim - 1)
+    # x's shard on model holds the rows of this device's model chunk
+    here = c % math.prod(mesh.size(i) for i in idle)
+    rows = k // n
+    out = x.redistribute(mesh, xp).to_local()[..., here * rows:
+                                               (here + 1) * rows] @ \
+        w.to_local()[c * rows:(c + 1) * rows]
+    out = _from_local(out, mesh, part, tuple(x.shape[:-1]) + (w.shape[-1],))
+    if split:
+        # reduce-scatter over model first: the data axes then all-reduce
+        # this device's columns only, as GSPMD's one all-reduce does
+        part[md] = dt.Shard(x.ndim - 1)
+        out = out.redistribute(mesh, part)
+    return out.redistribute(mesh, [whole[i] if i in idle else p
+                                   for i, p in enumerate(part)])
 
 
 class _Pin(torch.autograd.Function):

@@ -66,14 +66,16 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype, device
     }
 
 
-def _gates(params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(log a, gated input b), both f32, for x [..., W]."""
+def _gates(params, x: torch.Tensor, matmul=torch.matmul
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log a, gated input b), both f32, for x [..., W]; ``matmul`` takes
+    the two gate products."""
     from ..dist import api as dist_api
     xf = x.float()
-    r = torch.sigmoid(dist_api.split_model(xf @ params["w_a"].float(), -1)
-                      + params["b_a"])
-    i = torch.sigmoid(dist_api.split_model(xf @ params["w_i"].float(), -1)
-                      + params["b_i"])
+    r = torch.sigmoid(dist_api.split_model(matmul(xf, params["w_a"].float()),
+                                           -1) + params["b_a"])
+    i = torch.sigmoid(dist_api.split_model(matmul(xf, params["w_i"].float()),
+                                           -1) + params["b_i"])
     log_a = -_C * F.softplus(params["lam"]) * r           # log a_t, a in (0,1)
     a = torch.exp(log_a)
     gated_x = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
@@ -148,7 +150,7 @@ def decode_rglru(params, cfg: ModelConfig, u: torch.Tensor, state, conv
     new_conv = window[:, 1:, :]
     x = torch.einsum("bwc,wc->bc", window.float(),
                      params["conv_w"].float()) + params["conv_b"].float()
-    log_a, gx = _gates(params, x)
+    log_a, gx = _gates(params, x, dist_api.idle_split_product)
     state = torch.exp(log_a) * state + gx
     y = state.to(u.dtype)[:, None, :] * F.gelu(u @ params["w_y"],
                                                approximate="tanh")

@@ -26,6 +26,12 @@ def test_port_imports_no_jax_and_no_repro():
         import repro_torch.core.scheduler, repro_torch.configs
         import repro_torch.models, repro_torch.models.transformer
         import repro_torch.examples.mandelbrot_offload
+        import repro_torch.examples.quickstart
+        import repro_torch.examples.wah_indexing
+        import repro_torch.examples.graph_diamond
+        import repro_torch.examples.serve_lm
+        import repro_torch.examples.train_lm
+        import repro_torch.examples.dist_pipeline
         import repro_torch.serve, repro_torch.serve.engine
         import repro_torch.serve.kvpool, repro_torch.serve.batcher
         import repro_torch.serve.request, repro_torch.serve.stats
@@ -117,6 +123,16 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
         print("model_engine", raises(lambda: serve_mesh.model_engine(
             system)))
         print("quantize", raises(lambda: quantize_ref(np.ones(3))))
+        from repro_torch.examples import (dist_pipeline, graph_diamond,
+                                          quickstart, serve_lm, train_lm,
+                                          wah_indexing)
+        print("quickstart", raises(quickstart.run))
+        print("wah_indexing", raises(lambda: wah_indexing.run(256)))
+        print("graph_diamond", raises(graph_diamond.run))
+        print("serve_lm", raises(serve_lm.run))
+        print("train_lm", raises(lambda: train_lm.run(
+            train_lm.smoke_config("qwen3-1.7b"), steps=1)))
+        print("dist_pipeline", raises(dist_pipeline.run))
         spilled = DeviceRef(torch.ones(2)).spill()
         print("decode", raises(lambda: wire.decode(wire.encode((spilled,)))))
         with ActorSystem(max_workers=1, device="cpu") as cpu_system:
@@ -141,7 +157,8 @@ def test_without_a_card_nothing_binds_the_cpu_unasked():
                  "mandelbrot", "model", "launch_serve", "launch_paged",
                  "page_pool", "launch_train", "node", "run_worker", "net_demo",
                  "serve_mesh", "toy_engine", "model_engine", "quantize",
-                 "decode"):
+                 "decode", "quickstart", "wah_indexing", "graph_diamond",
+                 "serve_lm", "train_lm", "dist_pipeline"):
         assert f"{name} True" in out, out
     assert "devices []" in out
     assert "cpu cpu:0 cpu" in out

@@ -26,9 +26,11 @@ FLOPS_RATIO = {"recurrentgemma-9b": 1.06}
 FLOPS_DEFAULT = 1.02
 #: the collective bytes a device may exceed JAX's by
 COLLECTIVE_RATIO = 2.0
-#: the smoke shapes, and a train step of one sequence a device on a
-#: (2, 1, 4) mesh (C11's cell holds one)
-SHAPES = {**SMOKE_SHAPES, "t_train_b2": (256, 2, "train")}
+#: the smoke shapes, a train step of one sequence a device on a
+#: (2, 1, 4) mesh (C11's cell holds one), and a decode step of one
+#: sequence (C12's ``long_500k`` cell holds one)
+SHAPES = {**SMOKE_SHAPES, "t_train_b2": (256, 2, "train"),
+          "t_decode_b1": (512, 1, "decode")}
 
 AGAINST_JAX = r"""
 import dataclasses, json, math, os, sys
@@ -96,3 +98,22 @@ def test_smoke_cells_within_the_jax_partition_on_a_2x4_mesh(arch):
     got = against_jax(arch, (2, 4), ("data", "model"))
     assert len(got) == 3
     assert_within_jax(arch, got)
+
+
+def test_c12_one_sequence_decode_splits_the_gates_over_the_idle_data_axis():
+    """C12: recurrentgemma-9b's decode of one sequence on a (4, 2) mesh,
+    whose 4-way data axis the batch leaves idle. GSPMD splits the rows of
+    the RG-LRU's gate products (``w_a`` and ``w_i``, weights the rules
+    replicate) over the idle axis and ``model`` and all-reduces the
+    partial sums; the port did each on every device of the data axis
+    (1.111× JAX's FLOPs here, 1.105× in the full-width ``long_500k``
+    cell) until ``dist.api.idle_split_product``. The FLOPs are held to
+    1.02× JAX's: the rest is the decode P·V, which GSPMD computes for one
+    head a device of the data axis. The collective bytes are held to 4×,
+    the bound of the non-dense archs' full-width cells."""
+    got = against_jax("recurrentgemma-9b", (4, 2), ("data", "model"),
+                      shapes=("t_decode_b1",))
+    assert len(got) == 1
+    assert_within_jax("recurrentgemma-9b", got, collective_ratio=4.0)
+    cell = got["{} t_decode_b1"]
+    assert cell["port"]["flops"] <= FLOPS_DEFAULT * cell["jax"]["flops"], cell

@@ -524,3 +524,103 @@ def test_sharded_values_equal_the_plain_program_on_gloo(tmp_path):
                 assert got[part] <= 1e-5, (mesh, part, got)
             assert got["tokens"], mesh
         assert "Shard(dim=2)" in out["2x2"]["split"][0]
+
+
+_ONE_SEQUENCE = textwrap.dedent("""
+    import json, sys
+    import torch, torch.distributed as dist
+    import torch.utils._pytree as pytree
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist import api, sharding as sh, step as step_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.layers import plain_tree
+    rank, world, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    dist.init_process_group("gloo", store=dist.FileStore(path, world),
+                            rank=rank, world_size=world)
+    cfg = get_smoke_config("recurrentgemma-9b")
+    model = Model(cfg, device="cpu")
+    params = plain_tree(model.init(0))
+    gen = torch.Generator().manual_seed(2)
+    # one sequence 12 tokens in: random recurrent and conv states, a
+    # random K/V window
+    cache = model.init_cache(1, 24)
+    cache = pytree.tree_map(
+        lambda t: torch.randn(t.shape, generator=gen) if t.is_floating_point()
+        else t, cache)
+    cache["len"] = torch.tensor(12, dtype=torch.int32)
+    token = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                          dtype=torch.int32)
+    step = step_mod.build_serve_step(model)
+    want = step(params, cache, token)
+
+    # whether each gate product was split over the idle axes: the split
+    # builds its partial sums with _from_local, the plain product does not
+    made, split = [0], []
+    real_from_local, real_product = api._from_local, api.idle_split_product
+    def from_local(*a):
+        made[0] += 1
+        return real_from_local(*a)
+    def product(x, w):
+        before = made[0]
+        out = real_product(x, w)
+        split.append(made[0] > before)
+        return out
+    api._from_local, api.idle_split_product = from_local, product
+
+    def full(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    def err(got, want):
+        return max(float((full(a) - b).abs().max()) for a, b in
+                   zip(pytree.tree_leaves(got), pytree.tree_leaves(want)))
+
+    out = {}
+    for shape in ((2, 2), (4, 1), (1, 4)):
+        mesh = make_mesh(shape, ("data", "model"))
+
+        def lay(tree, specs):
+            return pytree.tree_map(lambda t, sp: distribute_tensor(
+                t, mesh, sh.placements(sp, mesh)), tree, specs,
+                is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+        dparams = lay(params, sh.param_shardings(params, cfg, mesh))
+        dcache = lay(cache, sh.cache_shardings(cache, cfg, mesh,
+                                               sh.Plan(kv_cache="seq")))
+        dtoken = lay({"t": token}, sh.batch_shardings({"t": token}, mesh))
+        del split[:]
+        with implicit_replication():
+            got = step(dparams, dcache, dtoken["t"])
+        states = [(c["state"], w["state"])
+                  for gc, gw in zip(got[2]["groups"], want[2]["groups"])
+                  for c, w in zip(gc, gw) if "state" in c]
+        out["x".join(map(str, shape))] = {
+            "logits": err(got[1], want[1]),
+            "state": err(*zip(*states)),
+            "cache": err(got[2], want[2]),
+            "token": bool(torch.equal(full(got[0]), want[0])),
+            "split": list(split)}
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(out))
+""")
+
+
+def test_one_sequence_rglru_decode_equals_the_plain_program_on_gloo(tmp_path):
+    """A recurrentgemma-9b smoke decode step of one sequence, whose batch
+    leaves the data axis idle: on 2 × 2 and 4 × 1 each RG-LRU gate product
+    (``dist.api.idle_split_product``) splits its rows over the idle data
+    axis and ``model``, on 1 × 4 (no idle axis) it stays whole; the
+    logits, the new RG-LRU states and the whole new cache (the K/V window
+    split on its slots, the ``seq`` plan of a decode cell), on real CPU
+    tensors over four gloo processes, equal the unsharded port's within
+    1e-5, and the token is the same."""
+    gates = 2 * 3                   # w_a and w_i of the 3 recurrent layers
+    for out in run_world(_ONE_SEQUENCE, 4, tmp_path):
+        for mesh, got in out.items():
+            for part in ("logits", "state", "cache"):
+                assert got[part] <= 1e-5, (mesh, part, got)
+            assert got["token"], mesh
+        assert out["2x2"]["split"] == out["4x1"]["split"] == [True] * gates
+        assert out["1x4"]["split"] == [False] * gates
