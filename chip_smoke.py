@@ -95,6 +95,13 @@ port's main path through the entry points a user calls:
   window 2048, bf16 and f32) against SDPA with the window as a mask, and
   at the families' other launch shapes.
 
+* B6 at every head dim from 1 to 256, where the TPU kernel takes any:
+  each launched once in bf16 and f32 at a small ragged GQA shape and held
+  to the plain version (bf16 head dims off 8 elements through the copy to
+  a 16-byte row pitch), and timed against SDPA at phi-2's layer launch
+  (D = 80), phi-3-mini's (D = 96) and at D = 72 and 100, on the kernels
+  built for the widths 96 and 128 they run on.
+
 * the rest of the distribution layer: B6 at head dim 192
   (nemotron-4-340b's 1 x 96 (8 KV) x 2048^2 x 192 causal launch, bf16
   over seeds 0-2 and f32, against SDPA); nemotron-4-340b's prefill at 4 of
@@ -388,6 +395,20 @@ FA_D256_WINDOW = 2048
 #: B6 at head dim 192: nemotron-4-340b's layer launch, 1 x 96 (8 KV) heads
 #: x 2048^2 x 192, causal (bf16 on key tiles of 64; f32 on 64-row tiles)
 FA_D192 = (1, 96, 8, 2048, 2048, 192)
+#: B6 at head dims that run on the widths 32, 96 and 160 or past a built
+#: width: phi-2's layer launch (1 x 32 (32 KV) heads x 2048^2 x 80) and
+#: phi-3-mini's (1 x 32 (32) x 4096^2 x 96), and 1 x 32 (8) x 2048^2 at
+#: D = 72 (on width 96; rows of 144 bytes, read in place) and D = 100 (on
+#: 128; bf16 rows of 200 bytes, off TMA's 16: copied to a 208-byte pitch);
+#: causal, bf16 over FA_BF16_SEEDS and f32, each timed beside SDPA
+FA_WIDTH_SHAPES = (("phi-2", (1, 32, 32, 2048, 2048, 80)),
+                   ("phi-3-mini", (1, 32, 32, 4096, 4096, 96)),
+                   ("D=72", (1, 32, 8, 2048, 2048, 72)),
+                   ("D=100", (1, 32, 8, 2048, 2048, 100)))
+#: every head dim from 1 to flash_attention.MAX_HEAD_DIM launches B6 once in
+#: each dtype at this (B, H, Hkv, Sq, Skv), causal, and is held to the
+#: plain version (f32 FA_F32_TOL, bf16 FA_BF16_STEPS)
+FA_EVERY_D = (1, 4, 2, 67, 131)
 #: nemotron-4-340b's prefill at its published widths: NEMOTRON_LAYERS of its
 #: 96 layers (3.45 B parameters a layer, 9.44 B of embedding and head: 23.2 B,
 #: 46.5 GB in bf16; all 96 layers take 681 GB), 1 x NEMOTRON_S tokens, B6 at
@@ -1956,47 +1977,51 @@ def ssm_phase(run_phase, dev) -> dict:
     return out
 
 
-# -- B6 at head dim 192 and the distribution layer's phases ---------------------
-def d192_phase(dev) -> dict:
-    """B6 at head dim 192, nemotron-4-340b's layer launch FA_D192: bf16
+# -- B6 at head dim 192, at the added widths, and the distribution layer ------
+def fa_shape_rows(tag: str, shape, dev) -> dict:
+    """B6 at one causal launch ``shape`` (B, H, Hkv, Sq, Skv, D): bf16
     within FA_BF16_STEPS of the plain version at every element over the
-    seeds FA_BF16_SEEDS, f32 (64-row tiles) within FA_F32_TOL; each timed
-    beside the plain version and SDPA (``is_causal``, ``enable_gqa``; f32
-    with TF32 off), against its bound."""
+    seeds FA_BF16_SEEDS, f32 within FA_F32_TOL; each timed beside the
+    plain version and SDPA (``is_causal``, ``enable_gqa``; f32 with TF32
+    off), against its bound, which counts the head dim D and not the
+    width the kernel runs it on."""
     from repro_torch.kernels import FLASH_ATTENTION, ref
     from repro_torch.kernels.build import device_sm_count
     from repro_torch.kernels.flash_attention import (f32_query_tile,
-                                                     flash_attention)
+                                                     flash_attention,
+                                                     kernel_width)
+    b_, h_, hkv_, s_, _, d_ = shape
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        r = dict(shape=list(FA_D192), dtype=str(dtype), seeds=[])
+        r = dict(shape=list(shape), dtype=str(dtype),
+                 kernel_width=kernel_width(d_), seeds=[])
         for seed in FA_BF16_SEEDS if dtype == torch.bfloat16 else (0,):
             q, k, v = attention_inputs(
-                FA_D192, dtype, torch.Generator(device=dev).manual_seed(seed),
+                shape, dtype, torch.Generator(device=dev).manual_seed(seed),
                 dev)
             before = FLASH_ATTENTION.launches
             got = flash_attention(q, k, v, causal=True)
             torch.cuda.synchronize()
             check(FLASH_ATTENTION.launches == before + 1,
-                  f"flash_attention {dtype} D=192: not one launch")
+                  f"flash_attention {dtype} {tag}: not one launch")
             want = ref.flash_attention(q, k, v, causal=True)
             reading = dict(seed=seed, max_abs_err=max_abs_err(
                 got.float(), want.float()))
             if dtype == torch.bfloat16:
                 reading["max_steps"] = float(bf16_steps(got, want).max())
                 check(reading["max_steps"] <= FA_BF16_STEPS,
-                      f"flash_attention bf16 D=192 seed {seed}: "
+                      f"flash_attention bf16 {tag} seed {seed}: "
                       f"{reading['max_steps']} bf16 steps from the plain "
                       f"version > {FA_BF16_STEPS}")
             else:
                 check(torch.allclose(got, want, rtol=FA_F32_TOL,
                                      atol=FA_F32_TOL),
-                      f"flash_attention f32 D=192 disagrees beyond "
+                      f"flash_attention f32 {tag} disagrees beyond "
                       f"{FA_F32_TOL}")
             r["seeds"].append(reading)
             del q, k, v, got, want
         q, k, v = attention_inputs(
-            FA_D192, dtype, torch.Generator(device=dev).manual_seed(0), dev)
+            shape, dtype, torch.Generator(device=dev).manual_seed(0), dev)
         r.update(
             max_abs_err=max(x["max_abs_err"] for x in r["seeds"]),
             ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True), 10),
@@ -2011,21 +2036,63 @@ def d192_phase(dev) -> dict:
                     "enable_gqa=True)" + (", f32 (TF32 off)"
                                          if dtype == torch.float32 else ""))
         if dtype == torch.float32:
-            r["query_tile"] = f32_query_tile(FA_D192[0], FA_D192[1],
-                                             FA_D192[3],
-                                             device_sm_count(dev.index), 192)
+            r["query_tile"] = f32_query_tile(b_, h_, s_,
+                                             device_sm_count(dev.index), d_)
         out["bf16" if dtype == torch.bfloat16 else "f32"] = r
-        log(f"flash_attention {dtype} causal D=192 1x96(8)x2048^2: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_ms'] / r['ms']:.3f} of it reached); max_abs_err "
-            f"{r['max_abs_err']}" + (
+        log(f"flash_attention {dtype} causal {tag} {b_}x{h_}({hkv_})x{s_}^2x"
+            f"{d_} (width {r['kernel_width']}): kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of "
+            f"it reached); max_abs_err {r['max_abs_err']}" + (
                 f", {max(x['max_steps'] for x in r['seeds'])} bf16 steps at "
                 f"most over seeds {list(FA_BF16_SEEDS)}"
                 if dtype == torch.bfloat16 else
                 f" (tol {FA_F32_TOL}), {r['query_tile']}-row tiles"))
         del q, k, v
     torch.cuda.empty_cache()
+    return out
+
+
+def every_head_dim_check(dev) -> dict:
+    """B6 at every head dim from 1 to MAX_HEAD_DIM in both dtypes, at
+    FA_EVERY_D: one launch each (bf16 head dims that are no multiple of 8
+    through the pitch copy), held to the plain version."""
+    from repro_torch.kernels import FLASH_ATTENTION, ref
+    from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
+                                                     flash_attention)
+    b_, h_, hkv_, sq_, skv_ = FA_EVERY_D
+    worst = {}
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        worst[str(dtype)] = 0.0
+        for d in range(1, MAX_HEAD_DIM + 1):
+            q, k, v = attention_inputs(
+                (b_, h_, hkv_, sq_, skv_, d), dtype,
+                torch.Generator(device=dev).manual_seed(d), dev)
+            before = FLASH_ATTENTION.launches
+            got = flash_attention(q, k, v, causal=True)
+            want = ref.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            check(FLASH_ATTENTION.launches == before + 1,
+                  f"flash_attention {dtype} head dim {d}: not one launch")
+            if dtype == torch.bfloat16:
+                err = float(bf16_steps(got, want).max())
+                check(err <= FA_BF16_STEPS, f"flash_attention bf16 head dim "
+                      f"{d}: {err} bf16 steps from the plain version")
+            else:
+                err = max_abs_err(got, want)
+                check(err <= FA_F32_TOL, f"flash_attention f32 head dim {d}:"
+                      f" {err} from the plain version")
+            worst[str(dtype)] = max(worst[str(dtype)], err)
+    out = dict(shape=list(FA_EVERY_D), head_dims=[1, MAX_HEAD_DIM],
+               launches=2 * MAX_HEAD_DIM, max_bf16_steps=worst["torch.bfloat16"],
+               max_abs_err_f32=worst["torch.float32"],
+               seconds=time.perf_counter() - t0)
+    log(f"flash_attention at every head dim 1..{MAX_HEAD_DIM}, bf16 and f32, "
+        f"{b_}x{h_}({hkv_})x{sq_}x{skv_} causal: {out['launches']} launches, "
+        f"at most {out['max_bf16_steps']} bf16 steps and "
+        f"{out['max_abs_err_f32']} in f32 from the plain version "
+        f"({out['seconds']:.1f} s)")
     return out
 
 
@@ -3073,7 +3140,14 @@ def main() -> int:
         del q, k, v
     rows["flash_attention"]["d256"] = d256
     del fa_mask
-    rows["flash_attention"]["d192"] = d192_phase(dev)
+    rows["flash_attention"]["d192"] = fa_shape_rows("D=192 (nemotron-4)",
+                                                     FA_D192, dev)
+    # the widths 32, 96 and 160: every head dim up to 256 launches B6
+    rows["flash_attention"]["widths"] = {
+        "built": list(HEAD_DIMS),
+        "every_head_dim": every_head_dim_check(dev),
+        **{tag: fa_shape_rows(tag, shape, dev)
+           for tag, shape in FA_WIDTH_SHAPES}}
     # the families' other bf16 launch shapes
     family_shapes = []
     for tag, shape, causal in FA_FAMILY_SHAPES:

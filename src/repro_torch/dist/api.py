@@ -276,22 +276,30 @@ def unshard(x, dim: int):
 
 
 def index_copy_(dst, dim: int, index, src):
-    """``dst.index_copy_(dim, index, src)`` for one index (``index`` [1]).
-    DTensor's in-place ``index_copy_`` on a ``dst`` sharded along ``dim``
-    (a decode cache sharded on its sequence dim) rewrites ``dst``'s
-    placements and leaves its local shard as it was, so its shape no
-    longer fits them. Such a ``dst`` takes the row by a select over the
-    slots that keeps its layout, as GSPMD's ``dynamic_update_slice``
-    writes into a sharded cache; a plain tensor is written in place."""
+    """``dst.index_copy_(dim, index, src)`` for one index (``index`` [1]),
+    ``dst`` keeping its layout whatever ``src``'s is, as GSPMD's
+    ``dynamic_update_slice`` keeps a cache's sharding. DTensor's in-place
+    ``index_copy_`` takes its placements from the operands and rewrites
+    ``dst``'s to them while its local shard stays as it was, so the shard
+    no longer fits them: on a ``dst`` sharded along ``dim`` (a decode
+    cache sharded on its sequence dim) whatever ``src`` is, and on any
+    ``dst`` whose placements ``src``'s differ from (a replicated cache
+    and a new K/V row split on its head dim). So a ``dst`` sharded along
+    ``dim`` takes the row by a select over the slots, which keeps its
+    layout, and any other ``dst`` takes it in place from ``src`` laid out
+    as ``dst`` is; a plain tensor is written in place."""
     dtensor = sys.modules.get("torch.distributed.tensor")
-    if dtensor is not None and isinstance(dst, dtensor.DTensor) and any(
-            isinstance(p, dtensor.Shard) and p.dim == dim % dst.ndim and
-            dst.device_mesh.size(i) > 1 for i, p in enumerate(dst.placements)):
+    if dtensor is None or not isinstance(dst, dtensor.DTensor):
+        return dst.index_copy_(dim, index, src)
+    if any(isinstance(p, dtensor.Shard) and p.dim == dim % dst.ndim and
+           dst.device_mesh.size(i) > 1 for i, p in enumerate(dst.placements)):
         slots = torch.arange(dst.shape[dim], device=index.device) == index
         shape = [1] * dst.ndim
         shape[dim] = -1
         return dst.copy_(torch.where(slots.reshape(shape), src.to(dst.dtype),
                                      dst))
+    if isinstance(src, dtensor.DTensor):
+        src = src.redistribute(dst.device_mesh, dst.placements)
     return dst.index_copy_(dim, index, src)
 
 

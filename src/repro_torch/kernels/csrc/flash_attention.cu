@@ -21,17 +21,23 @@
 // oracle would give NaN). Ragged Sq and Skv are masked in the kernels, so
 // every shape reaches them, and q, k, v are read through their strides
 // (last axis contiguous): the model's [B, S, H, D] projections need no
-// copy.
+// copy. Like the TPU kernel they take any head dim (up to 256 here): each
+// is built for the widths 16, 32, 64, 96, 128, 160, 192 and 256, and a
+// head dim d runs on the next width up, its tiles zero-filled past d in
+// shared memory, so O's columns past d come out 0; O is stored in rows of
+// the width, of which the wrapper returns the first d columns. The
+// padding costs up to width / d of the math and of O's bytes, none of the
+// inputs'.
 //
 // bf16 (flash_attention_bf16), FA3-style, for sm_90a:
 //   * one 384-thread block per (head, batch, 128-query tile); the tiles
 //     are launched last-first, so under the causal mask the longest run
 //     first and do not form a tail;
 //   * warpgroup 2 is the producer: one thread loads the Q tile once and
-//     then K and V tiles of 128 keys (64 at D = 192 and 256) by TMA (rank-4
-//     tensor maps over the tensors' own strides, 128-byte swizzle, 32-byte
-//     where a row of D is narrower; rows past Skv or Sq come back as
-//     zeros) into a two-stage
+//     then K and V tiles of 128 keys (64 above D = 128) by TMA (rank-4
+//     tensor maps over the tensors' own strides, 128-byte swizzle, 64- or
+//     32-byte where 64 columns do not tile the width; rows past Skv or Sq
+//     and columns past the head dim come back as zeros) into a two-stage
 //     ring, each stage with an mbarrier for K, one for V and one that the
 //     consumers release it on, so copies run under the consumers' math;
 //   * warpgroups 0 and 1 consume 64 query rows each, with the registers
@@ -55,8 +61,8 @@
 //     last-first; the tile is 128 rows, or 64 where a grid of 128-row
 //     tiles would not give every SM a block (the wrapper's
 //     f32_query_tile: the 1 x 16-head x 512 f32 prefill), and always 64
-//     at D = 192 and 256, where a 128-row tile does not fit in shared
-//     memory;
+//     above D = 128, where a 128-row tile does not fit in shared memory
+//     (D = 192, 256) or its O in registers (D = 160);
 //   * Q, K and V stay as they lie in memory, rows of D at a pitch of D + 4
 //     floats: both operands of S = Q K^T run along D, so no transposing
 //     scatter. Q is copied once; K and V tiles of 64 keys by cp.async,
@@ -66,7 +72,8 @@
 //     would not fit beside Q and P at D = 128;
 //   * register tiles: thread (ty, tx) of 16 x 16 holds rows ty + 16 i of
 //     the tile (8, or 4 at 64 rows), keys tx + 16 j of S (4) and columns
-//     64 g + 4 tx + c of O (8 at D = 128), so a row's keys lie in the 16
+//     64 g + 4 tx + c of O (8 at D = 128; 32 g + 2 tx + c at D = 32, 96
+//     and 160), so a row's keys lie in the 16
 //     lanes of one half-warp, each warp load is a broadcast or 16
 //     neighbouring float4, and a key tile costs a thread 8192 FFMAs
 //     against 640 shared-memory loads;
@@ -91,6 +98,7 @@
 #include <cuda_bf16.h>
 
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
@@ -105,10 +113,15 @@ constexpr int THREADS = 256;  // 16 x 16: ty picks rows, tx keys or columns
 constexpr int BK = 64;        // keys a tile
 constexpr int KJ = BK / 16;   // keys of S a thread holds: tx + 16 j
 
+// D is the width the kernel is built for; a head dim d < D runs on the
+// next width up with columns d .. D - 1 of Q, K and V zero-filled in
+// shared memory: they add nothing to S and give zero columns of O.
 template <int D, int BQ>
 struct Cfg {
-  static constexpr int R = BQ / 16;                // rows a thread: ty + 16 i
-  static constexpr int CW = D >= 64 ? 4 : D / 16;  // columns of O in a group
+  static constexpr int R = BQ / 16;  // rows a thread: ty + 16 i
+  // columns of O in a group: a float4, or a float2 where 64 does not
+  // divide D (D = 32, 96, 160), or a float at D = 16
+  static constexpr int CW = D % 64 == 0 ? 4 : (D % 32 == 0 ? 2 : 1);
   static constexpr int CG = D / (16 * CW);         // groups, 16 CW apart
   static constexpr int NC = CW * CG;               // columns of O a thread
   static constexpr int RP = D + 4;                 // row pitch of Q, K, V
@@ -116,7 +129,7 @@ struct Cfg {
   static constexpr int Q_FLOATS = BQ * RP;
   static constexpr int KV_FLOATS = BK * RP;
   static constexpr int SMEM = (Q_FLOATS + 2 * KV_FLOATS + BQ * PP) * 4;
-  static_assert(CW == 4 || CW == 1, "a column group is a float4 or a float");
+  static_assert(CW * CG * 16 == D, "the column groups tile D");
   static_assert(BQ * D % (4 * THREADS) == 0 && BK * D % (4 * THREADS) == 0,
                 "every thread copies whole 16-byte chunks of each tile");
 };
@@ -129,19 +142,20 @@ struct Params {
   long long qs[3];     // strides of q over (batch, head, seq), in elements
   long long ks[3];
   long long vs[3];
+  int d;               // the head dim, 1 .. D
   int h, group, sq, skv;
   int causal, window;  // window <= 0: none
   int vec;             // bit 0: q, 1: k, 2: v are copied 16 bytes a thread
   float scale_log2;    // scale * log2(e)
 };
 
-// Rows r0 .. r0 + ROWS - 1 of an operand whose rows of D floats lie `ld`
+// Rows r0 .. r0 + ROWS - 1 of an operand whose rows of d floats lie `ld`
 // elements apart, into shared memory at dst with a row pitch of D + 4
-// floats; rows at or past n are zero-filled. vec: 16-byte copies (base
-// and pitch on 16 bytes), else 4-byte copies.
+// floats; rows at or past n and columns at or past d are zero-filled.
+// vec: 16-byte copies (base, pitch and d on 16 bytes), else 4-byte copies.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_rows(uint32_t dst, const float* g,
-                                          long long ld, int r0, int n,
+                                          long long ld, int r0, int n, int d,
                                           bool vec) {
   constexpr int RP = D + 4;
   if (vec) {
@@ -151,7 +165,7 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const float* g,
       const int e = threadIdx.x + it * THREADS;
       const int r = e / CH;
       const int c = (e % CH) * 4;
-      const bool in = r0 + r < n;
+      const bool in = r0 + r < n && c < d;
       cp_async16(dst + (r * RP + c) * 4, in ? g + (r0 + r) * ld + c : g,
                  in ? 16 : 0);
     }
@@ -161,7 +175,7 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const float* g,
       const int e = threadIdx.x + it * THREADS;
       const int r = e / D;
       const int c = e % D;
-      const bool in = r0 + r < n;
+      const bool in = r0 + r < n && c < d;
       cp_async4(dst + (r * RP + c) * 4, in ? g + (r0 + r) * ld + c : g,
                 in ? 4 : 0);
     }
@@ -203,8 +217,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* kg = p.k + bb * p.ks[0] + hk * p.ks[1];
   const float* vg = p.v + bb * p.vs[0] + hk * p.vs[1];
   if (n_tiles > 0) {
-    load_rows<D, BQ>(qs_a, qg, p.qs[2], q0, p.sq, p.vec & 1);
-    load_rows<D, BK>(ks_a, kg, p.ks[2], k_begin, p.skv, p.vec & 2);
+    load_rows<D, BQ>(qs_a, qg, p.qs[2], q0, p.sq, p.d, p.vec & 1);
+    load_rows<D, BK>(ks_a, kg, p.ks[2], k_begin, p.skv, p.d,
+                      p.vec & 2);
     cp_async_commit();
   }
 
@@ -223,7 +238,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int k0 = k_begin + t * BK;
     cp_async_wait<0>();
     __syncthreads();  // K(t) (and Q) have landed; V and P are free
-    load_rows<D, BK>(vs_a, vg, p.vs[2], k0, p.skv, p.vec & 4);
+    load_rows<D, BK>(vs_a, vg, p.vs[2], k0, p.skv, p.d, p.vec & 4);
     cp_async_commit();  // V(t) lands under S(t)
 
     // S = Q K^T: rows ty + 16 i, keys tx + 16 j, both along D in shared
@@ -304,7 +319,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_wait<0>();
     __syncthreads();  // V(t) has landed and P is written; K(t) is free
     if (t + 1 < n_tiles)
-      load_rows<D, BK>(ks_a, kg, p.ks[2], k0 + BK, p.skv, p.vec & 2);
+      load_rows<D, BK>(ks_a, kg, p.ks[2], k0 + BK, p.skv, p.d,
+                       p.vec & 2);
     cp_async_commit();  // K(t + 1) lands under P V(t)
 
     // O += P V: rows ty + 16 i, columns 16 CW g + CW tx + c
@@ -328,6 +344,11 @@ __global__ void __launch_bounds__(THREADS, 1)
             vv[4 * g + 1] = w.y;
             vv[4 * g + 2] = w.z;
             vv[4 * g + 3] = w.w;
+          } else if constexpr (C::CW == 2) {
+            const float2 w =
+                *reinterpret_cast<const float2*>(vrow + g * 16 * C::CW);
+            vv[2 * g] = w.x;
+            vv[2 * g + 1] = w.y;
           } else {
             vv[g] = vrow[g * 16];
           }
@@ -359,6 +380,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         *reinterpret_cast<float4*>(orow + g * 16 * C::CW) =
             make_float4(o[i][4 * g] * inv, o[i][4 * g + 1] * inv,
                         o[i][4 * g + 2] * inv, o[i][4 * g + 3] * inv);
+      } else if constexpr (C::CW == 2) {
+        *reinterpret_cast<float2*>(orow + g * 16 * C::CW) =
+            make_float2(o[i][2 * g] * inv, o[i][2 * g + 1] * inv);
       } else {
         orow[g * 16] = o[i][g] * inv;
       }
@@ -382,7 +406,9 @@ int launch_d(const Params& p, int batch, cudaStream_t stream) {
 // The 128-row tile is built where it fits in an SM's 227 KB: at D = 256
 // its Q and P would take 170 KB beside 130 KB of K and V, so D = 256 has
 // the 64-row tile only (Q 65 KB, K and V 130 KB, P 20 KB: 215 KB); at
-// D = 192 the 128-row tile would take 242 KB, the 64-row one 171 KB.
+// D = 192 the 128-row tile would take 242 KB, the 64-row one 171 KB. At
+// D = 160 it would fit (204 KB), but a thread would hold 80 f32 of O where
+// D = 128's 64 already take it to 254 registers.
 template <int D>
 constexpr bool kLargeTile = D <= 128;
 
@@ -430,6 +456,10 @@ constexpr int PRODUCER_WG = 2;
 constexpr int PRODUCER_REGS = 40;   // 128 x 40 + 256 x 232 <= 65536
 constexpr int CONSUMER_REGS = 232;
 
+// D is the width the kernel is built for (flash_attention.py's
+// HEAD_DIMS); a head dim d < D runs on the next width up: the tensor maps
+// span d, so TMA fills columns d .. D - 1 of every tile with zeros, which
+// add nothing to S = Q K^T and give zero columns of O.
 template <int D>
 struct Cfg {
   // Keys a tile: 128, or 64 above D = 128, where the Q tile (64 KB at
@@ -438,11 +468,15 @@ struct Cfg {
   // ring is 128 KB (96 KB). A consumer thread then holds D / 2 f32 of O
   // (128 at D = 256, 96 at 192), 32 of S and 32 registers of P's two bf16
   // halves. O += P V takes N = D in one wgmma (m64n256k16, m64n192k16),
-  // V's 64-column panels BK * SW bytes apart.
+  // V's panels BK * SW bytes apart. D = 160 takes 64 keys too: 128-key
+  // tiles would fit (200 KB), but S and P's halves (128 registers) beside
+  // 80 of O would not fit a consumer's 232.
   static constexpr int BK = D > 128 ? 64 : 128;
-  // A row of a shared-memory panel is one swizzle span: 128 bytes (64
-  // bf16), or the whole row of D where that is narrower (D = 16: 32 B).
-  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;
+  // A row of a shared-memory panel is one swizzle span, the widest of
+  // 128, 64 and 32 bytes whose panels tile D: 128 (64 bf16) where 64
+  // divides D, 64 at D = 32, 96 and 160 (1, 3 and 5 panels of 32
+  // columns), 32 at D = 16.
+  static constexpr int SW = D % 64 == 0 ? 128 : (D % 32 == 0 ? 64 : 32);
   static constexpr int PW = SW / 2;             // panel width, elements
   static constexpr int PANELS = D / PW;
   static constexpr int KSTEPS = PW / 16;        // k16 steps in a panel
@@ -459,7 +493,7 @@ struct Cfg {
 };
 
 struct Params {
-  CUtensorMap qmap, kmap, vmap;  // [B, H, S, D] as rank 4, D innermost
+  CUtensorMap qmap, kmap, vmap;  // [B, H, S, d] as rank 4, d innermost
   void* out;                     // [B, H, Sq, D], contiguous
   int h, group, sq, skv;
   int causal, window;            // window <= 0: none
@@ -489,6 +523,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8], uint32_t a0,
 
 // D[64xN] += A[64x16] B[16xN]: A from registers, B from shared memory
 // (MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// D[64xN] += A[64x16] B[16xN]: A from registers, B from shared memory
+// (MN-major: the transpose bit is set)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t b) {
@@ -507,6 +561,34 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// D[64xN] += A[64x16] B[16xN]: A from registers, B from shared memory
+// (MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
@@ -539,6 +621,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// D[64xN] += A[64x16] B[16xN]: A from registers, B from shared memory
+// (MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[80], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
@@ -865,15 +984,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // A rank-4 map over a [batch, heads, rows, d] bf16 tensor with element
-// strides st = (batch, head, row); boxes of (panel width, box_rows).
-// The stride of an axis of length 1 is never used, and is replaced by a
-// valid one. The Python wrapper has already checked TMA's rules (16-byte
-// base and strides, last axis contiguous); the encoder checks them again.
+// strides st = (batch, head, row); boxes of (panel width, box_rows), so
+// a box's columns at or past d, like its rows past the end, come back as
+// zeros. The stride of an axis of length 1 is never used, and is replaced
+// by a valid one (a row's, rounded up to 16 bytes). The Python wrapper has
+// already checked TMA's rules (16-byte base and strides, last axis
+// contiguous); the encoder checks them again.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d,
             int rows, int heads, int batch, const long long* st, int box_rows,
             int sw) {
   long long row_b = st[2] * 2, head_b = st[1] * 2, batch_b = st[0] * 2;
-  if (rows == 1) row_b = d * 2LL;
+  if (rows == 1) row_b = (d * 2LL + 15) / 16 * 16;
   if (heads == 1) head_b = row_b * rows;
   if (batch == 1) batch_b = head_b * heads;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
@@ -899,17 +1020,18 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d,
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* out,
              const long long* qs, const long long* ks, const long long* vs,
-             int batch, int h, int hkv, int sq, int skv, int causal,
+             int batch, int h, int hkv, int sq, int skv, int d, int causal,
              int window, float scale, cudaStream_t stream) {
+  if (d < 1 || d > D) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   Params p;
-  if (!encode(fn, &p.qmap, q, D, sq, h, batch, qs, BQ, Cfg<D>::SW))
+  if (!encode(fn, &p.qmap, q, d, sq, h, batch, qs, BQ, Cfg<D>::SW))
     return static_cast<int>(cudaErrorInvalidValue);
   if (skv > 0) {
     constexpr int BK = Cfg<D>::BK;
-    if (!encode(fn, &p.kmap, k, D, skv, hkv, batch, ks, BK, Cfg<D>::SW) ||
-        !encode(fn, &p.vmap, v, D, skv, hkv, batch, vs, BK, Cfg<D>::SW))
+    if (!encode(fn, &p.kmap, k, d, skv, hkv, batch, ks, BK, Cfg<D>::SW) ||
+        !encode(fn, &p.vmap, v, d, skv, hkv, batch, vs, BK, Cfg<D>::SW))
       return static_cast<int>(cudaErrorInvalidValue);
   } else {  // no key tile is loaded; any valid map will do
     p.kmap = p.qmap;
@@ -946,15 +1068,39 @@ int info_d(int* regs, int* local_bytes, int* smem_bytes) {
 
 }  // namespace tc
 
+// Calls f(std::integral_constant<int, D>{}) for the width D == width that
+// the kernels are built for (flash_attention.py's HEAD_DIMS: the smoke
+// configs' 16, whisper-tiny's 64, the 128 of the dense, moe and vlm
+// configs, nemotron-4-340b's 192, recurrentgemma-9b's 256, and 32, 96 and
+// 160, so that a head dim above 16 runs less than 2x wide and one above 64
+// less than 1.5x); cudaErrorInvalidValue for any other.
+template <class F>
+int by_width(int width, F&& f) {
+  switch (width) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 160: return f(std::integral_constant<int, 160>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
+// Attention at head dim d on the kernel built for `width` (d <= width):
+// out is [B, H, Sq, width], its columns past d zero.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out,
                                    const long long* qs, const long long* ks,
                                    const long long* vs, int batch, int h,
-                                   int hkv, int sq, int skv, int d, int causal,
-                                   int window, float scale, int bq, int vec,
-                                   void* stream) {
+                                   int hkv, int sq, int skv, int d, int width,
+                                   int causal, int window, float scale,
+                                   int bq, int vec, void* stream) {
+  if (d < 1 || d > width) return static_cast<int>(cudaErrorInvalidValue);
   simt::Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -965,6 +1111,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
     p.ks[i] = ks[i];
     p.vs[i] = vs[i];
   }
+  p.d = d;
   p.h = h;
   p.group = h / hkv;
   p.sq = sq;
@@ -974,14 +1121,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   p.vec = vec;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return simt::launch_tile<16>(p, batch, bq, s);  // CPU-test config
-    case 64: return simt::launch_tile<64>(p, batch, bq, s);
-    case 128: return simt::launch_tile<128>(p, batch, bq, s);  // qwen3-1.7b
-    case 192: return simt::launch_tile<192>(p, batch, bq, s);  // nemotron-4
-    case 256: return simt::launch_tile<256>(p, batch, bq, s);  // recurrentgemma
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_width(width, [&](auto w) {
+    return simt::launch_tile<decltype(w)::value>(p, batch, bq, s);
+  });
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
@@ -989,54 +1131,31 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const long long* qs, const long long* ks,
                                     const long long* vs, int batch, int h,
                                     int hkv, int sq, int skv, int d,
-                                    int causal, int window, float scale,
-                                    void* stream) {
+                                    int width, int causal, int window,
+                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16:
-      return tc::launch_d<16>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
-                              skv, causal, window, scale, s);
-    case 64:
-      return tc::launch_d<64>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
-                              skv, causal, window, scale, s);
-    case 128:
-      return tc::launch_d<128>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
-                               skv, causal, window, scale, s);
-    case 192:
-      return tc::launch_d<192>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
-                               skv, causal, window, scale, s);
-    case 256:
-      return tc::launch_d<256>(q, k, v, out, qs, ks, vs, batch, h, hkv, sq,
-                               skv, causal, window, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_width(width, [&](auto w) {
+    return tc::launch_d<decltype(w)::value>(q, k, v, out, qs, ks, vs, batch,
+                                            h, hkv, sq, skv, d, causal,
+                                            window, scale, s);
+  });
 }
 
 // Registers a thread, local (spill) bytes a thread and dynamic shared
-// memory a block of the bf16 kernel for head dim d; launches nothing.
-extern "C" int flash_attention_bf16_info(int d, int* regs, int* local_bytes,
-                                         int* smem_bytes) {
-  switch (d) {
-    case 16: return tc::info_d<16>(regs, local_bytes, smem_bytes);
-    case 64: return tc::info_d<64>(regs, local_bytes, smem_bytes);
-    case 128: return tc::info_d<128>(regs, local_bytes, smem_bytes);
-    case 192: return tc::info_d<192>(regs, local_bytes, smem_bytes);
-    case 256: return tc::info_d<256>(regs, local_bytes, smem_bytes);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// memory a block of the bf16 kernel built for `width`; launches nothing.
+extern "C" int flash_attention_bf16_info(int width, int* regs,
+                                         int* local_bytes, int* smem_bytes) {
+  return by_width(width, [&](auto w) {
+    return tc::info_d<decltype(w)::value>(regs, local_bytes, smem_bytes);
+  });
 }
 
-// The same for the f32 kernel with query tile bq (128 or 64; 64 only at
-// D = 192 and 256).
-extern "C" int flash_attention_f32_info(int d, int bq, int* regs,
+// The same for the f32 kernel with query tile bq (128 or 64; 64 only
+// above width 128).
+extern "C" int flash_attention_f32_info(int width, int bq, int* regs,
                                         int* local_bytes, int* smem_bytes) {
-  switch (d) {
-    case 16: return simt::info_tile<16>(bq, regs, local_bytes, smem_bytes);
-    case 64: return simt::info_tile<64>(bq, regs, local_bytes, smem_bytes);
-    case 128: return simt::info_tile<128>(bq, regs, local_bytes, smem_bytes);
-    case 192: return simt::info_tile<192>(bq, regs, local_bytes, smem_bytes);
-    case 256: return simt::info_tile<256>(bq, regs, local_bytes, smem_bytes);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return by_width(width, [&](auto w) {
+    return simt::info_tile<decltype(w)::value>(bq, regs, local_bytes,
+                                               smem_bytes);
+  });
 }

@@ -10,20 +10,24 @@ softmax in registers. f32 runs as IEEE f32 on the SIMT FMA pipes: one
 copied by ``cp.async`` under the FMAs, 8 rows x 4 keys of S and 8 rows x
 8 columns of O a thread in registers, the softmax in registers. Its
 query tile is 128 rows, or 64 where a grid of 128-row tiles would leave
-SMs without a block, and always 64 at head dims 192 and 256, where a
-128-row tile does not fit in shared memory (:func:`f32_query_tile`);
-bf16 takes key tiles of 64 at those head dims for the same reason. Both
-take GQA by indexing the K/V head, causal and local-window masks on
-right-aligned positions, and skip the key tiles outside the masks.
-:func:`flash_attention` takes the plain version for CPU tensors and
-launches a kernel for CUDA tensors; there is no other path.
+SMs without a block, and always 64 above head dim 128, where a 128-row
+tile does not fit in shared memory or its output in registers
+(:func:`f32_query_tile`); bf16 takes key tiles of 64 there for the same
+reasons. Both take GQA by indexing the K/V head, causal and local-window
+masks on right-aligned positions, and skip the key tiles outside the
+masks. Like the TPU kernel, both take any head dim, here from 1 to
+:data:`MAX_HEAD_DIM`: each is built for the widths :data:`HEAD_DIMS`, and
+a head dim runs on the next width up (:func:`kernel_width`), its tiles
+zero-filled past it. :func:`flash_attention` takes the plain version for
+CPU tensors and launches a kernel for CUDA tensors; there is no other
+path.
 
 TMA reads a tensor where it lies only if its base address and outer
 strides are multiples of 16 bytes; :func:`kernel_operand` decides, per
-tensor, whether it is passed through or copied to a contiguous tensor
-first, so every bf16 shape still reaches the kernel. The f32 kernel reads
-any tensor whose last axis is contiguous, 16 bytes a thread where the
-base and strides allow it and 4 bytes a thread elsewhere
+tensor, whether it is passed through or copied first to rows at a
+16-byte pitch, so every bf16 shape still reaches the kernel. The f32
+kernel reads any tensor whose last axis is contiguous, 16 bytes a thread
+where the base and strides allow it and 4 bytes a thread elsewhere
 (:func:`f32_vector_loads`).
 """
 from __future__ import annotations
@@ -36,32 +40,40 @@ import torch
 from . import ref
 from .build import CudaKernel, device_sm_count
 
-__all__ = ["KERNEL", "HEAD_DIMS", "F32_QUERY_TILES", "flash_attention",
-           "kernel_info", "kernel_operand", "tma_ready", "f32_vector_loads",
+__all__ = ["KERNEL", "HEAD_DIMS", "MAX_HEAD_DIM", "F32_QUERY_TILES",
+           "flash_attention", "kernel_width", "kernel_info",
+           "kernel_operand", "tma_ready", "f32_vector_loads",
            "f32_query_tiles", "f32_query_tile"]
 
 _STRIDES = ctypes.c_longlong * 3
+#: q, k, v, out; their strides; batch, heads, KV heads, Sq, Skv, the head
+#: dim, the kernel's width, causal, window; the scale; the stream
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
          ctypes.POINTER(ctypes.c_longlong),
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-         ctypes.c_void_p)
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_float, ctypes.c_void_p)
 #: the f32 launch also takes the query tile and the copy widths (bits)
 _F32_ARGS = _ARGS[:-1] + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _INFO_ARGS = (ctypes.c_int, ctypes.POINTER(ctypes.c_int),
               ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
 _F32_INFO_ARGS = (ctypes.c_int,) + _INFO_ARGS
 _DTYPES = (torch.float32, torch.bfloat16)
-#: head dims the kernels are instantiated for: the smoke configs' 16,
-#: whisper-tiny's 64, the 128 of the dense, moe and vlm configs,
-#: nemotron-4-340b's 192 and recurrentgemma-9b's 256
-HEAD_DIMS = (16, 64, 128, 192, 256)
+#: widths the kernels are built for: the smoke configs' 16, whisper-tiny's
+#: 64, the 128 of the dense, moe and vlm configs, nemotron-4-340b's 192,
+#: recurrentgemma-9b's 256, and 32, 96 and 160 between them, so that a
+#: head dim above 16 runs less than 2x wide and one above 64 less than
+#: 1.5x (phi-2's 80 and phi-3-mini's 96 on 96)
+HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 256)
+#: the largest head dim the kernels take (the TPU kernel takes any)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 #: f32 query tiles (rows a block): the large tile, and the one for grids
 #: that would leave SMs without a block
 F32_QUERY_TILES = (128, 64)
-#: the largest head dim with the large f32 tile: at 192 its Q, K, V and P
-#: take 242 KB of shared memory, at 256 300 KB, more than an SM has
+#: the widest kernel with the large f32 tile: at 192 its Q, K, V and P
+#: take 242 KB of shared memory, at 256 300 KB, more than an SM has; at 160
+#: its 80 f32 of O a thread would not fit in registers
 F32_LARGE_TILE_MAX_D = 128
 #: TMA's alignment of a tensor's base address and strides, in bytes, and
 #: that of the f32 kernel's 16-byte copies
@@ -89,28 +101,50 @@ def tma_ready(t: torch.Tensor) -> bool:
         for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
+def kernel_width(d: int) -> int:
+    """The width of the kernel that runs head dim ``d``: the smallest of
+    :data:`HEAD_DIMS` not below it. Raises ``ValueError`` outside 1 ..
+    :data:`MAX_HEAD_DIM`."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes head dims 1 to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    return next(w for w in HEAD_DIMS if w >= d)
+
+
 def kernel_operand(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernel of its dtype reads it: the tensor itself where
     it can (bf16: :func:`tma_ready`; f32: last axis contiguous), else a
-    contiguous copy, which always can."""
-    ok = tma_ready(t) if t.dtype == torch.bfloat16 else t.stride(-1) == 1
-    return t if ok else t.clone(memory_format=torch.contiguous_format)
+    copy that can: f32 contiguous, bf16 into rows whose pitch is the head
+    dim rounded up to 16 bytes (a view of those rows; the padding columns
+    are never read, the tensor maps span the head dim)."""
+    if t.dtype != torch.bfloat16:
+        return t if t.stride(-1) == 1 else \
+            t.clone(memory_format=torch.contiguous_format)
+    if tma_ready(t):
+        return t
+    per = TMA_ALIGN // t.element_size()
+    d = t.shape[-1]
+    buf = torch.empty((*t.shape[:-1], -(-d // per) * per), dtype=t.dtype,
+                      device=t.device)
+    buf[..., :d].copy_(t)
+    return buf[..., :d]
 
 
 def f32_vector_loads(t: torch.Tensor) -> bool:
     """Whether the f32 kernel copies ``t`` (``[B,H,S,D]``, last axis
-    contiguous) 16 bytes a thread: its base on 16 bytes and the stride of
-    every other axis longer than 1 a multiple of 4 floats, so that no
-    row's 16-byte chunk straddles an alignment. Else 4 bytes a thread."""
-    return t.data_ptr() % TMA_ALIGN == 0 and all(
+    contiguous) 16 bytes a thread: its base on 16 bytes, D and the stride
+    of every other axis longer than 1 multiples of 4 floats, so that no
+    row's 16-byte chunk straddles an alignment or the row's end. Else 4
+    bytes a thread."""
+    return t.data_ptr() % TMA_ALIGN == 0 and t.shape[-1] % 4 == 0 and all(
         n == 1 or st % 4 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
 def f32_query_tiles(d: int) -> tuple:
-    """The f32 kernel's query tiles built for head dim ``d``: both of
-    :data:`F32_QUERY_TILES`, or only 64 rows above
-    :data:`F32_LARGE_TILE_MAX_D`."""
-    return F32_QUERY_TILES if d <= F32_LARGE_TILE_MAX_D \
+    """The f32 kernel's query tiles built for head dim ``d``'s width
+    (:func:`kernel_width`): both of :data:`F32_QUERY_TILES`, or only 64
+    rows above :data:`F32_LARGE_TILE_MAX_D`."""
+    return F32_QUERY_TILES if kernel_width(d) <= F32_LARGE_TILE_MAX_D \
         else F32_QUERY_TILES[1:]
 
 
@@ -133,20 +167,23 @@ def _strides(t: torch.Tensor) -> "ctypes.Array":
 
 def kernel_info(d: int, dtype: torch.dtype = torch.bfloat16,
                 query_tile: int = F32_QUERY_TILES[0]) -> Dict[str, object]:
-    """The kernel of ``dtype`` for head dim ``d`` (f32: and ``query_tile``)
-    as compiled: registers a thread, local (spill) bytes a thread and
-    dynamic shared memory a block; bf16 also says how P enters the P·V
-    product. Builds the library; launches nothing."""
+    """The kernel of ``dtype`` that runs head dim ``d`` (the one built
+    for :func:`kernel_width` of it; f32: and ``query_tile``) as compiled:
+    registers a thread, local (spill) bytes a thread and dynamic shared
+    memory a block; bf16 also says how P enters the P·V product. Builds
+    the library; launches nothing."""
+    width = kernel_width(d)
     regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     out = ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem)
     if dtype == torch.float32:
-        KERNEL.query("flash_attention_f32_info", d, query_tile, *out)
+        KERNEL.query("flash_attention_f32_info", width, query_tile, *out)
         extra = {"query_tile": query_tile}
     else:
-        KERNEL.query("flash_attention_bf16_info", d, *out)
+        KERNEL.query("flash_attention_bf16_info", width, *out)
         extra = {"pv": PV_VARIANT}
-    return {"head_dim": d, "dtype": str(dtype), "registers": regs.value,
-            "spill_bytes": local.value, "smem_bytes": smem.value, **extra}
+    return {"head_dim": d, "kernel_width": width, "dtype": str(dtype),
+            "registers": regs.value, "spill_bytes": local.value,
+            "smem_bytes": smem.value, **extra}
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
@@ -158,13 +195,14 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"device, got {q.device}, {k.device}, {v.device}")
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    width = kernel_width(d)
     q, k, v = (kernel_operand(t) for t in (q, k, v))
-    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, sq, width), dtype=q.dtype, device=q.device)
     if not out.numel():
-        return out
+        return out[..., :d]
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _strides(q), _strides(k), _strides(v), b, h, hkv, sq, skv, d,
-            int(causal), window, scale)
+            width, int(causal), window, scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.float32:
         tile = f32_query_tile(b, h, sq, device_sm_count(q.device.index), d)
@@ -173,12 +211,13 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         KERNEL.launch("flash_attention_f32", *args, tile, vec, stream)
     else:
         KERNEL.launch("flash_attention_bf16", *args, stream)
-    return out
+    return out[..., :d]
 
 
 @_flash_attention_cuda.register_fake
 def _(q, k, v, causal, window, scale):
-    return torch.empty_like(q, memory_format=torch.contiguous_format)
+    b, h, sq, d = q.shape
+    return q.new_empty((b, h, sq, kernel_width(d)))[..., :d]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -186,7 +225,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q ``[B,H,Sq,D]`` over k, v ``[B,Hkv,Skv,D]`` (Hkv
     divides H), with right-aligned query positions; the output has q's
-    shape and dtype. A query that sees no key gives 0."""
+    shape and dtype. A query that sees no key gives 0. On the card the
+    output is the first D columns of rows of :func:`kernel_width` (D):
+    contiguous where D is one of :data:`HEAD_DIMS`."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] or \
             k.shape[1] == 0 or q.shape[1] % k.shape[1]:
@@ -202,7 +243,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             v.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got {q.shape[3]}")
+    kernel_width(q.shape[3])  # raises outside the head dims it takes
     return _flash_attention_cuda(q, k, v, causal, window or 0, scale)

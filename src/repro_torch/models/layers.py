@@ -20,7 +20,8 @@ from torch import nn
 __all__ = ["ParamTree", "plain_tree", "init_norm", "apply_norm", "rope_freqs",
            "rope_tables", "m_rope_tables", "rotate", "apply_rope",
            "apply_m_rope", "sinusoidal_positions", "MLP_KINDS", "init_mlp",
-           "apply_mlp", "init_embedding", "normal"]
+           "apply_mlp", "init_embedding", "init_linear", "apply_linear",
+           "normal"]
 
 
 class ParamTree(nn.Module):
@@ -212,3 +213,22 @@ def apply_mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype, device
                    ) -> torch.Tensor:
     return normal(gen, (vocab, d), 0.02, dtype, device)
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
+                bias: bool = False) -> dict:
+    """``w`` [d_in, d_out] of standard deviation ``1 / sqrt(d_in)`` and,
+    with ``bias``, a zero ``b`` [d_out]."""
+    p = {"w": normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in), dtype,
+                     device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def apply_linear(p, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, plus ``b`` where ``p`` has one."""
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y

@@ -23,10 +23,12 @@ from repro_torch.examples.mandelbrot_offload import run as run_offload
 from repro_torch.indexing import (build_wah_index, build_wah_index_numpy,
                                   wah_index_pipeline_actors)
 from repro_torch.kernels import KERNELS, ops, ref
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, f32_query_tiles,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, MAX_HEAD_DIM,
+                                                 f32_query_tiles,
                                                  f32_vector_loads,
                                                  flash_attention, kernel_info,
-                                                 kernel_operand, tma_ready)
+                                                 kernel_operand, kernel_width,
+                                                 tma_ready)
 from repro_torch.kernels.matmul import INSTANTIATIONS
 from repro_torch.kernels.matmul import KERNEL as MATMUL_KERNEL
 from repro_torch.kernels.matmul import kernel_info as matmul_kernel_info
@@ -414,6 +416,18 @@ def test_mandelbrot_kernel_is_bit_exact(cuda_device, height, width,
     (1, 96, 8, 256, 256, 192, True, None),     # D = 192, nemotron-4's 96:8
     (2, 4, 2, 201, 333, 192, True, None),      # D = 192, ragged Sq and Skv
     (1, 4, 4, 150, 270, 192, False, None),     # D = 192, not causal, Sq < Skv
+    (1, 2, 2, 256, 256, 32, True, None),       # D = 32, causal
+    (2, 8, 2, 201, 333, 32, True, None),       # D = 32, GQA 4, ragged
+    (4, 16, 4, 300, 300, 32, True, None),      # D = 32, f32 128-row tiles
+    (1, 2, 1, 520, 520, 72, True, 200),        # D = 72 on 96, window
+    (2, 4, 2, 201, 333, 72, True, None),       # D = 72, ragged Sq and Skv
+    (1, 32, 32, 256, 256, 80, True, None),     # D = 80 (phi-2's) on 96
+    (1, 4, 4, 150, 270, 80, False, None),      # D = 80, not causal, Sq < Skv
+    (1, 32, 8, 384, 384, 96, True, None),      # D = 96 (phi-3-mini's), GQA 4
+    (4, 16, 8, 300, 300, 96, True, 50),        # D = 96, f32 128-row tiles
+    (1, 12, 1, 384, 384, 160, True, None),     # D = 160, GQA 12:1
+    (2, 4, 2, 201, 333, 160, True, 100),       # D = 160, ragged, window
+    (1, 2, 2, 200, 70, 160, True, 16),         # D = 160, Sq > Skv: blind rows
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)])
@@ -462,6 +476,50 @@ def test_flash_attention_reads_strided_bf16_projections(cuda_device):
                                ref.flash_attention(q, k, v).float(),
                                rtol=3e-2, atol=3e-2)
     assert _launches()["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("d", [32, 72, 80, 96, 160, 33])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_reads_strided_views_at_the_new_widths(
+        cuda_device, d, dtype, tol):
+    """[B,S,H,D] projections seen as [B,H,S,D] at the head dims the widths
+    32, 96 and 160 took on, in one launch; at D = 33 bf16 heads lie 66
+    bytes apart, so q, k, v go through the pitch copy."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn(2, 300, 16, d, generator=g, device=cuda_device)
+    kv = torch.randn(2, 300, 8, d, generator=g, device=cuda_device)
+    q, k = x.to(dtype).transpose(1, 2), kv.to(dtype).transpose(1, 2)
+    v = (kv * 0.5).to(dtype).transpose(1, 2)
+    if dtype == torch.bfloat16:
+        assert all(tma_ready(t) == (d % 8 == 0) for t in (q, k, v))
+    before = _launches()["flash_attention"]
+    got = flash_attention(q, k, v, causal=True, window=120)
+    want = ref.flash_attention(q, k, v, causal=True, window=120)
+    torch.cuda.synchronize()
+    assert _launches()["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.stride(2) == kernel_width(d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_launches_at_every_head_dim(cuda_device, dtype, tol):
+    """Every head dim from 1 to 256 launches the kernel once, ragged, GQA
+    and causal, within the tolerance; none reaches the plain version."""
+    for d in range(1, MAX_HEAD_DIM + 1):
+        g = torch.Generator(device=cuda_device).manual_seed(d)
+        q = torch.randn(1, 4, 67, d, generator=g, device=cuda_device)
+        k, v = (torch.randn(1, 2, 131, d, generator=g, device=cuda_device)
+                for _ in range(2))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        before = _launches()["flash_attention"]
+        got = flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert _launches()["flash_attention"] == before + 1, d
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"d={d}: {m}")
 
 
 @pytest.mark.parametrize("layout", ["odd_row_stride", "odd_base"])
@@ -529,6 +587,7 @@ def test_flash_attention_f32_kernel_info(cuda_device):
         for tile in f32_query_tiles(d):
             info = kernel_info(d, torch.float32, tile)
             assert info["query_tile"] == tile and info["spill_bytes"] == 0
+            assert info["kernel_width"] == d
             assert 0 < info["registers"] <= 255
             assert info["smem_bytes"] <= 232448
 
@@ -537,7 +596,7 @@ def test_flash_attention_bf16_kernel_info(cuda_device):
     """The bf16 kernel compiles without spills and fits one block an SM."""
     for d in HEAD_DIMS:
         info = kernel_info(d)
-        assert info["spill_bytes"] == 0
+        assert info["spill_bytes"] == 0 and info["kernel_width"] == d
         assert 0 < info["registers"] <= 255
         assert info["smem_bytes"] <= 232448
 

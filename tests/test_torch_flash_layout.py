@@ -17,11 +17,13 @@ import torch
 
 from repro_torch.kernels import KERNELS, ref
 from repro_torch.kernels.flash_attention import (F32_QUERY_TILES, HEAD_DIMS,
+                                                 MAX_HEAD_DIM,
                                                  f32_query_tile,
                                                  f32_query_tiles,
                                                  f32_vector_loads,
                                                  flash_attention,
-                                                 kernel_operand, tma_ready)
+                                                 kernel_operand, kernel_width,
+                                                 tma_ready)
 
 #: the H100's streaming multiprocessors
 H100_SMS = 132
@@ -172,16 +174,89 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(got, ref.flash_attention(q, k, v, causal=True))
 
 
-@pytest.mark.parametrize("d", [32, 96, 160])
+@pytest.mark.parametrize("d", [272, 320, 512])
 def test_head_dim_outside_the_kernels_raises(d):
-    assert d not in HEAD_DIMS
+    assert d > MAX_HEAD_DIM
     q, kv = _meta(1, 4, 64, d), _meta(1, 2, 64, d)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, kv, kv)
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d,width", [
+    (1, 16), (16, 16), (17, 32), (32, 32), (33, 64), (64, 64), (65, 96),
+    (72, 96), (80, 96), (96, 96), (97, 128), (128, 128), (129, 160),
+    (160, 160), (161, 192), (192, 192), (193, 256), (250, 256), (256, 256)])
+def test_kernel_width_is_the_next_width_up(d, width):
+    assert width in HEAD_DIMS and kernel_width(d) == width
+
+
+def test_every_head_dim_up_to_256_has_a_width_and_no_other():
+    """Every head dim from 1 to 256 runs on the smallest width not below
+    it: under 2x wide above 16, under 1.5x above 64; 0 and 257 raise."""
+    for d in range(1, MAX_HEAD_DIM + 1):
+        w = kernel_width(d)
+        assert w >= d and not [x for x in HEAD_DIMS if d <= x < w]
+        assert d <= 16 or w < 2 * d
+        assert d <= 64 or w < 1.5 * d
+    for d in (0, MAX_HEAD_DIM + 1):
+        with pytest.raises(ValueError, match="head dims 1 to 256"):
+            kernel_width(d)
+
+
+@pytest.mark.parametrize("d", [1, 20, 33, 100, 250, 255])
+def test_bf16_rows_off_16_bytes_are_copied_to_a_16_byte_pitch(d):
+    """A bf16 head dim that is no multiple of 8 gives rows off TMA's 16
+    bytes: q, k, v are copied to rows at a pitch of the head dim rounded
+    up to 8 elements, and the kernel reads the view of their d columns."""
+    for t in (_meta(2, 4, 300, d), _bshd(2, 300, 4, d)):
+        assert not tma_ready(t)
+        out = kernel_operand(t)
+        assert out.shape == t.shape and out.stride(-1) == 1
+        assert out.stride(2) == -(-d // 8) * 8 and tma_ready(out)
+        assert out.stride(1) == 300 * out.stride(2)
+
+
+def test_pitch_copy_keeps_the_values():
+    x = torch.arange(2 * 3 * 5 * 33, dtype=torch.float32).view(2, 3, 5, 33)
+    t = x.bfloat16()
+    out = kernel_operand(t)
+    assert out.stride(2) == 40 and torch.equal(out, t)
+
+
+def test_a_single_bf16_row_of_any_width_is_read_where_it_lies():
+    """With every outer axis of length 1 no row pitch is read (the kernel
+    supplies a 16-byte one), so nothing is copied."""
+    t = _meta(1, 1, 1, 33)
+    assert tma_ready(t) and kernel_operand(t) is t
+
+
+def test_f32_head_dims_off_4_floats_take_4_byte_copies():
+    """A row of D floats ends inside a 16-byte chunk unless 4 divides D:
+    4-byte copies, also for a single row."""
+    for t in (_f32(2, 4, 300, 33), _f32(1, 1, 1, 33), _f32(1, 1, 1, 2)):
+        assert not f32_vector_loads(t) and kernel_operand(t) is t
+    assert f32_vector_loads(_f32(2, 4, 300, 72))
+    assert f32_vector_loads(_f32(1, 1, 1, 100))
+
+
+@pytest.mark.parametrize("d,tiles", [(32, F32_QUERY_TILES),
+                                     (100, F32_QUERY_TILES),
+                                     (129, (64,)), (160, (64,))])
+def test_f32_query_tiles_follow_the_width(d, tiles):
+    """The f32 query tiles are those of the width a head dim runs on: 128
+    rows up to width 128, 64 rows above (160's O would not fit in
+    registers)."""
+    assert f32_query_tiles(d) == tiles
+    assert f32_query_tile(1, 132, 128, H100_SMS, d) == tiles[0]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS + (1, 33, 72, 80, 100, 250))
 def test_kernel_path_evaluates_on_meta_tensors(d):
+    """The output is the first d columns of rows of the kernel's width:
+    contiguous at the built widths, a view of padded rows elsewhere."""
     q, kv = _bshd(2, 100, 8, d), _bshd(2, 70, 2, d)
     out = flash_attention(q, kv, kv, causal=True, window=16)
-    assert out.is_meta and out.shape == q.shape and out.is_contiguous()
+    assert out.is_meta and out.shape == q.shape
+    assert out.stride() == (8 * 100 * kernel_width(d), 100 * kernel_width(d),
+                            kernel_width(d), 1)
+    assert out.is_contiguous() == (d in HEAD_DIMS)

@@ -80,6 +80,19 @@ def test_flash_attention_matches_pallas(b, h, hkv, sq, skv, d, causal):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("d", [32, 72, 80, 96, 160])
+def test_flash_attention_matches_pallas_at_the_new_head_dims(d):
+    """The head dims the kernels took on in their widths 32, 96 and 160
+    (phi-2's 80 and phi-3-mini's 96 among them; 72 and 80 run padded to
+    96): GQA, causal, with a window across tiles, against the Pallas
+    kernel, which takes any head dim."""
+    q, k, v = _qkv(d, 1, 4, 2, 128, 192, d)
+    want = _pallas(q, k, v, causal=True, window=100)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True, window=100)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("window", [32, 100, 256])
 def test_flash_attention_local_window(window):
     q, k, v = _qkv(window, 1, 2, 2, 128, 256, 64)

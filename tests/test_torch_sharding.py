@@ -588,7 +588,7 @@ _ONE_SEQUENCE = textwrap.dedent("""
 
         dparams = lay(params, sh.param_shardings(params, cfg, mesh))
         dcache = lay(cache, sh.cache_shardings(cache, cfg, mesh,
-                                               sh.Plan(kv_cache="seq")))
+                                               sh.Plan(kv_cache="@PLAN@")))
         dtoken = lay({"t": token}, sh.batch_shardings({"t": token}, mesh))
         del split[:]
         with implicit_replication():
@@ -596,15 +596,27 @@ _ONE_SEQUENCE = textwrap.dedent("""
         states = [(c["state"], w["state"])
                   for gc, gw in zip(got[2]["groups"], want[2]["groups"])
                   for c, w in zip(gc, gw) if "state" in c]
+        kv = [(g[name], d[name])
+              for gg, gd in zip(got[2]["groups"], dcache["groups"])
+              for g, d in zip(gg, gd) for name in ("k", "v") if name in g]
         out["x".join(map(str, shape))] = {
             "logits": err(got[1], want[1]),
             "state": err(*zip(*states)),
             "cache": err(got[2], want[2]),
             "token": bool(torch.equal(full(got[0]), want[0])),
-            "split": list(split)}
+            "split": list(split),
+            "kv_layout_kept": bool(kv) and all(
+                g.placements == d.placements and
+                g.to_local().shape == d.to_local().shape for g, d in kv)}
     dist.destroy_process_group()
     print("RESULT " + json.dumps(out))
 """)
+
+
+def _one_sequence(plan: str) -> str:
+    """The one-sequence decode of ``_ONE_SEQUENCE`` with its K/V caches
+    laid out by ``sh.Plan(kv_cache=plan)``."""
+    return _ONE_SEQUENCE.replace("@PLAN@", plan)
 
 
 def test_one_sequence_rglru_decode_equals_the_plain_program_on_gloo(tmp_path):
@@ -617,10 +629,91 @@ def test_one_sequence_rglru_decode_equals_the_plain_program_on_gloo(tmp_path):
     tensors over four gloo processes, equal the unsharded port's within
     1e-5, and the token is the same."""
     gates = 2 * 3                   # w_a and w_i of the 3 recurrent layers
-    for out in run_world(_ONE_SEQUENCE, 4, tmp_path):
+    for out in run_world(_one_sequence("seq"), 4, tmp_path):
         for mesh, got in out.items():
             for part in ("logits", "state", "cache"):
                 assert got[part] <= 1e-5, (mesh, part, got)
             assert got["token"], mesh
         assert out["2x2"]["split"] == out["4x1"]["split"] == [True] * gates
         assert out["1x4"]["split"] == [False] * gates
+
+
+def test_one_sequence_rglru_decode_on_the_heads_plan_equals_the_plain_program_on_gloo(
+        tmp_path):
+    """The same decode step with the K/V window laid out by the ``heads``
+    plan (C13). recurrentgemma-9b's one KV head does not divide the model
+    axis, so the caches stay replicated, while the new K/V row comes in
+    split on its head dim over ``model``: the write
+    (``dist.api.index_copy_``) must keep the cache's layout, as JAX's
+    ``dynamic_update_slice`` does, where DTensor's in-place write would
+    record the row's and keep the whole shard. On 2 × 2, 4 × 1 and 1 × 4
+    the logits, the RG-LRU states and the whole new cache equal the
+    unsharded port's within 1e-5, the token is the same, and every new
+    K/V leaf keeps the placements and shard shape it came in with."""
+    gates = 2 * 3
+    for out in run_world(_one_sequence("heads"), 4, tmp_path):
+        assert set(out) == {"2x2", "4x1", "1x4"}
+        for mesh, got in out.items():
+            for part in ("logits", "state", "cache"):
+                assert got[part] <= 1e-5, (mesh, part, got)
+            assert got["token"] and got["kv_layout_kept"], (mesh, got)
+        assert out["2x2"]["split"] == out["4x1"]["split"] == [True] * gates
+        assert out["1x4"]["split"] == [False] * gates
+
+
+_INDEX_COPY = textwrap.dedent("""
+    import json, sys
+    import torch, torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.dist import api
+    from repro_torch.launch.mesh import make_mesh
+    rank, world, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    dist.init_process_group("gloo", store=dist.FileStore(path, world),
+                            rank=rank, world_size=world)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    gen = torch.Generator().manual_seed(0)
+    cache = torch.randn(2, 8, 4, 16, generator=gen)     # [B, S, Hkv, D]
+    row = torch.randn(2, 1, 4, 16, generator=gen)
+    index = torch.tensor([5])
+    want = cache.clone().index_copy_(1, index, row)
+    R, S = Replicate(), Shard
+    out = {}
+    for name, dst_p, src_p in (
+            ("replicated_cache_head_split_row", (R, R), (R, S(3))),
+            ("replicated_cache_batch_split_row", (R, R), (S(0), R)),
+            ("head_split_cache_replicated_row", (S(0), S(2)), (R, R)),
+            ("head_split_cache_dim_split_row", (S(0), S(2)), (S(0), S(3))),
+            ("slot_split_cache_head_split_row", (S(0), S(1)), (R, S(2))),
+            ("same_layout", (S(0), S(2)), (S(0), S(2)))):
+        dst = distribute_tensor(cache, mesh, dst_p)
+        local = tuple(dst.to_local().shape)
+        with implicit_replication():
+            api.index_copy_(dst, 1, index, distribute_tensor(row, mesh, src_p))
+        out[name] = {
+            "placements": dst.placements == tuple(dst_p),
+            "local": tuple(dst.to_local().shape) == local,
+            "err": float((dst.full_tensor() - want).abs().max())}
+    plain = cache.clone()
+    out["plain"] = {"same_storage": api.index_copy_(plain, 1, index, row)
+                    .data_ptr() == plain.data_ptr(),
+                    "err": float((plain - want).abs().max())}
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps(out))
+""")
+
+
+def test_index_copy_keeps_the_cache_layout_on_gloo(tmp_path):
+    """``dist.api.index_copy_`` writes one K/V row into a decode cache
+    [B, S, Hkv, D] on a 2 × 2 mesh of four gloo processes and leaves the
+    cache laid out as it was, whatever the row's layout: replicated, split
+    on its heads or on its slots (the written dim), against a row
+    replicated or split on another dim; the cache then holds exactly the
+    plain ``index_copy_``'s values. A plain tensor is written in place."""
+    for out in run_world(_INDEX_COPY, 4, tmp_path):
+        for case, got in out.items():
+            if case == "plain":
+                assert got == {"same_storage": True, "err": 0.0}
+                continue
+            assert got == {"placements": True, "local": True, "err": 0.0}, \
+                (case, got)

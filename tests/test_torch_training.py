@@ -31,7 +31,8 @@ from repro.optim import adamw as jadamw
 from repro.optim import schedule as jschedule
 from repro_torch import configs
 from repro_torch.checkpoint import checkpoint as ckpt
-from repro_torch.convert import params_from_jax, train_state_from_jax
+from repro_torch.convert import (from_jax_arrays, params_from_jax,
+                                 train_state_from_jax)
 from repro_torch.data import Prefetcher, SyntheticLM
 from repro_torch.dist import step as step_mod
 from repro_torch.launch import train as launch_train
@@ -254,6 +255,36 @@ def test_mlp_kinds_match_jax(kind):
     jinit = jlayers.init_mlp(jax.random.key(0), d, f, kind, jnp.float32)
     assert {k: tuple(v.shape) for k, v in init.items()} == \
         {k: tuple(v.shape) for k, v in jinit.items()}
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_linear_matches_jax(bias):
+    """JAX's ``init_linear`` weights, carried over by ``convert``, give
+    JAX's ``apply_linear`` output through the port's; the port's own
+    ``init_linear`` draws the same shapes, dtype and scale (its bits come
+    from a ``torch.Generator``)."""
+    d_in, d_out = 256, 40
+    x = np.random.default_rng(5).standard_normal((3, 7, d_in)).astype(
+        np.float32)
+    jp = jlayers.init_linear(jax.random.key(1), d_in, d_out, jnp.float32,
+                             bias=bias)
+    if bias:    # JAX initialises it to zero: give the sum something to add
+        jp = {**jp, "b": jnp.linspace(-1.0, 1.0, d_out, dtype=jnp.float32)}
+    want = np.asarray(jlayers.apply_linear(jp, jnp.asarray(x)))
+    got = layers.apply_linear(from_jax_arrays(jp, device=CPU),
+                              torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    init = layers.init_linear(torch.Generator().manual_seed(0), d_in, d_out,
+                              torch.float32, CPU, bias=bias)
+    jinit = jlayers.init_linear(jax.random.key(0), d_in, d_out, jnp.float32,
+                                bias=bias)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in init.items()} == \
+        {k: (tuple(v.shape), torch.float32) for k, v in jinit.items()}
+    assert all(v.dtype == jnp.float32 for v in jinit.values())
+    # 10,240 draws: the standard deviation within 5 % of 1 / sqrt(d_in)
+    assert abs(float(init["w"].std()) * d_in ** 0.5 - 1.0) < 0.05
+    if bias:
+        assert not init["b"].any()
 
 
 def test_gelu_is_the_tanh_approximation_as_in_jax():

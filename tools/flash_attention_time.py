@@ -88,7 +88,7 @@ def main() -> int:
     if hasattr(fa, "f32_query_tile"):
         out["f32_kernels"] = [fa.kernel_info(d, torch.float32, t)
                               for d in fa.HEAD_DIMS
-                              for t in fa.F32_QUERY_TILES]
+                              for t in fa.f32_query_tiles(d)]
         for info in out["f32_kernels"]:
             print(f"[{args.tag}] f32 kernel {info}", flush=True)
 
