@@ -405,10 +405,24 @@ FA_WIDTH_SHAPES = (("phi-2", (1, 32, 32, 2048, 2048, 80)),
                    ("phi-3-mini", (1, 32, 32, 4096, 4096, 96)),
                    ("D=72", (1, 32, 8, 2048, 2048, 72)),
                    ("D=100", (1, 32, 8, 2048, 2048, 100)))
-#: every head dim from 1 to flash_attention.MAX_HEAD_DIM launches B6 once in
-#: each dtype at this (B, H, Hkv, Sq, Skv), causal, and is held to the
-#: plain version (f32 FA_F32_TOL, bf16 FA_BF16_STEPS)
+#: every head dim from 1 to flash_attention.MAX_KERNEL_WIDTH, and each of
+#: FA_ABOVE_D, launches B6 once in each dtype at this (B, H, Hkv, Sq,
+#: Skv), causal, and is held to the plain version (f32 FA_F32_TOL, bf16
+#: FA_BF16_STEPS)
 FA_EVERY_D = (1, 4, 2, 67, 131)
+#: head dims above the widest kernel, run in slabs (kernel_slabs): 257,
+#: 272, 300, 320, 448, 640 on slabs of 160, 384 on 192, 500, 512 and
+#: 1024 on 256, 896 on 128; above 512 bf16 streams Q through its ring
+FA_ABOVE_D = (257, 272, 300, 320, 384, 448, 500, 512, 640, 896, 1024)
+#: B6 in slabs at two causal launch shapes, each timed beside SDPA: 1 x 16
+#: (4 KV) heads x 2048^2 x 512 (2 slabs of 256) and 1 x 32 (8) x 2048^2 x
+#: 320 (2 of 160)
+FA_SLAB_SHAPES = (("D=512", (1, 16, 4, 2048, 2048, 512)),
+                  ("D=320", (1, 32, 8, 2048, 2048, 320)))
+#: a head dim in slabs on the main path: qwen3-1.7b's published widths
+#: with head_dim SLAB_PREFILL_D at SLAB_PREFILL_LAYERS of its 28 layers, a
+#: 1 x PREFILL_S bf16 prefill (numpy seed 23), B6 once a layer
+SLAB_PREFILL_LAYERS, SLAB_PREFILL_D = 2, 512
 #: nemotron-4-340b's prefill at its published widths: NEMOTRON_LAYERS of its
 #: 96 layers (3.45 B parameters a layer, 9.44 B of embedding and head: 23.2 B,
 #: 46.5 GB in bf16; all 96 layers take 681 GB), 1 x NEMOTRON_S tokens, B6 at
@@ -2034,16 +2048,18 @@ def fa_shape_rows(tag: str, shape, dev) -> dict:
                     q, k, v, is_causal=True, enable_gqa=True), 10),
             library="F.scaled_dot_product_attention(is_causal=True, "
                     "enable_gqa=True)" + (", f32 (TF32 off)"
-                                         if dtype == torch.float32 else ""))
+                                         if dtype == torch.float32 else ""),
+            library_backend=sdpa_backend(q, k, v, True))
         if dtype == torch.float32:
             r["query_tile"] = f32_query_tile(b_, h_, s_,
                                              device_sm_count(dev.index), d_)
         out["bf16" if dtype == torch.bfloat16 else "f32"] = r
         log(f"flash_attention {dtype} causal {tag} {b_}x{h_}({hkv_})x{s_}^2x"
             f"{d_} (width {r['kernel_width']}): kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.3f} of "
-            f"it reached); max_abs_err {r['max_abs_err']}" + (
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+            f"({r['library_backend']}), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_ms'] / r['ms']:.3f} of it reached); max_abs_err "
+            f"{r['max_abs_err']}" + (
                 f", {max(x['max_steps'] for x in r['seeds'])} bf16 steps at "
                 f"most over seeds {list(FA_BF16_SEEDS)}"
                 if dtype == torch.bfloat16 else
@@ -2054,18 +2070,20 @@ def fa_shape_rows(tag: str, shape, dev) -> dict:
 
 
 def every_head_dim_check(dev) -> dict:
-    """B6 at every head dim from 1 to MAX_HEAD_DIM in both dtypes, at
-    FA_EVERY_D: one launch each (bf16 head dims that are no multiple of 8
-    through the pitch copy), held to the plain version."""
+    """B6 at every head dim from 1 to MAX_KERNEL_WIDTH and at FA_ABOVE_D
+    (in slabs) in both dtypes, at FA_EVERY_D: one launch each (bf16 head
+    dims that are no multiple of 8 through the pitch copy), held to the
+    plain version."""
     from repro_torch.kernels import FLASH_ATTENTION, ref
-    from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
+    from repro_torch.kernels.flash_attention import (MAX_KERNEL_WIDTH,
                                                      flash_attention)
     b_, h_, hkv_, sq_, skv_ = FA_EVERY_D
+    head_dims = (*range(1, MAX_KERNEL_WIDTH + 1), *FA_ABOVE_D)
     worst = {}
     t0 = time.perf_counter()
     for dtype in (torch.bfloat16, torch.float32):
         worst[str(dtype)] = 0.0
-        for d in range(1, MAX_HEAD_DIM + 1):
+        for d in head_dims:
             q, k, v = attention_inputs(
                 (b_, h_, hkv_, sq_, skv_, d), dtype,
                 torch.Generator(device=dev).manual_seed(d), dev)
@@ -2084,15 +2102,64 @@ def every_head_dim_check(dev) -> dict:
                 check(err <= FA_F32_TOL, f"flash_attention f32 head dim {d}:"
                       f" {err} from the plain version")
             worst[str(dtype)] = max(worst[str(dtype)], err)
-    out = dict(shape=list(FA_EVERY_D), head_dims=[1, MAX_HEAD_DIM],
-               launches=2 * MAX_HEAD_DIM, max_bf16_steps=worst["torch.bfloat16"],
+    out = dict(shape=list(FA_EVERY_D), head_dims=[1, MAX_KERNEL_WIDTH],
+               above=list(FA_ABOVE_D), launches=2 * len(head_dims),
+               max_bf16_steps=worst["torch.bfloat16"],
                max_abs_err_f32=worst["torch.float32"],
                seconds=time.perf_counter() - t0)
-    log(f"flash_attention at every head dim 1..{MAX_HEAD_DIM}, bf16 and f32, "
+    log(f"flash_attention at every head dim 1..{MAX_KERNEL_WIDTH} and "
+        f"{list(FA_ABOVE_D)}, bf16 and f32, "
         f"{b_}x{h_}({hkv_})x{sq_}x{skv_} causal: {out['launches']} launches, "
         f"at most {out['max_bf16_steps']} bf16 steps and "
         f"{out['max_abs_err_f32']} in f32 from the plain version "
         f"({out['seconds']:.1f} s)")
+    return out
+
+
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend F.scaled_dot_product_attention picks for these inputs
+    (``torch._fused_sdp_choice``), by name: what SDPA's time is of."""
+    from torch.nn.attention import SDPBackend
+    names = {int(m): n for n, m in SDPBackend.__members__.items()}
+    return names[int(torch._fused_sdp_choice(q, k, v, is_causal=causal,
+                                             enable_gqa=True))]
+
+
+def slab_prefill_phase(run_phase, dev) -> dict:
+    """qwen3-1.7b's published widths with head_dim SLAB_PREFILL_D, which B6
+    runs in slabs, at SLAB_PREFILL_LAYERS layers, random bf16 weights from
+    seed 0, 1 x PREFILL_S tokens: one slab launch a layer, held to the
+    plain attention under the prefill gates."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel_slabs
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              n_layers=SLAB_PREFILL_LAYERS,
+                              head_dim=SLAB_PREFILL_D)
+    model = Model(cfg, attn_impl="kernel", device=dev)
+    params = model.init(0)
+    tokens = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (1, PREFILL_S))).to(dev)
+    model.forward(params, {"tokens": tokens})          # warm up
+    name = (f"qwen3-1.7b head_dim {SLAB_PREFILL_D} ({SLAB_PREFILL_LAYERS} "
+            f"layers) prefill 1x{PREFILL_S} bf16")
+    t0 = time.perf_counter()
+    logits, _ = run_phase(name, ["flash_attention"],
+                          lambda: model.forward(params, {"tokens": tokens}),
+                          {"flash_attention_bf16_slabs": cfg.n_layers,
+                           "flash_attention_bf16": 0})
+    wall = (time.perf_counter() - t0) * 1e3
+    plain, _ = Model(cfg, attn_impl="ref", device=dev).forward(
+        params, {"tokens": tokens})
+    out = prefill_gates(name, logits, plain)
+    out.update(arch="qwen3-1.7b", n_layers=cfg.n_layers,
+               head_dim=SLAB_PREFILL_D,
+               slabs=list(kernel_slabs(SLAB_PREFILL_D)),
+               tokens=[1, PREFILL_S], launches=cfg.n_layers, wall_ms=wall,
+               weight_gb=param_bytes(params) / 1e9)
+    log(f"{name}: {out['weight_gb']:.2f} GB of weights, forward wall "
+        f"{wall:.3f} ms, {cfg.n_layers} slab launches")
     return out
 
 
@@ -2670,10 +2737,12 @@ def main() -> int:
                                      WAH_INTERLEAVE, build_all, ops, ref)
     from repro_torch.kernels.build import device_sm_count
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     SLAB_WIDTHS,
                                                      f32_query_tile,
                                                      f32_query_tiles,
                                                      flash_attention,
-                                                     kernel_info)
+                                                     kernel_info,
+                                                     kernel_slabs)
     from repro_torch.kernels.mandelbrot import mandelbrot as mandelbrot_kernel
     from repro_torch.kernels.matmul import kernel_info as matmul_kernel_info
     from repro_torch.kernels.matmul import matmul as matmul_kernel
@@ -2693,7 +2762,8 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    log(f"built {len(KERNELS)} kernels in {build_all(KERNELS):.2f} s")
+    build_s = build_all(KERNELS)
+    log(f"built {len(KERNELS)} kernels in {build_s:.2f} s")
     fa_info = []
     for d in HEAD_DIMS:
         info = kernel_info(d)
@@ -2706,6 +2776,19 @@ def main() -> int:
             info = kernel_info(d, torch.float32, tile)
             log(f"flash_attention f32 kernel, head dim {d}, {tile}-row query "
                 f"tile: {info['registers']} registers a thread, "
+                f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} "
+                "bytes of shared memory a block")
+            fa_info.append(info)
+    # the slab kernels, each at a head dim that runs on it
+    slab_dims = {kernel_slabs(d)[1]: d for d in FA_ABOVE_D}
+    check(sorted(slab_dims) == sorted(SLAB_WIDTHS),
+          f"FA_ABOVE_D runs on slabs {sorted(slab_dims)}, not {SLAB_WIDTHS}")
+    for w in SLAB_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            info = kernel_info(slab_dims[w], dtype)
+            log(f"flash_attention {dtype} slab kernel, width {w} (head dim "
+                f"{slab_dims[w]} in {info['slabs']} slabs): "
+                f"{info['registers']} registers a thread at launch, "
                 f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} "
                 "bytes of shared memory a block")
             fa_info.append(info)
@@ -2739,6 +2822,9 @@ def main() -> int:
           f"no bf16 D = 192 kernel with HGMMA among {list(fa_sass)}")
     log(f"sass flash_attention bf16 D = 192 ({d192_tc[0]}): "
         f"{fa_sass[d192_tc[0]]}")
+    slab_tc = [fn for fn in fa_sass if "flash_attention_tc_slab_kernel" in fn]
+    check(len(slab_tc) == len(SLAB_WIDTHS), f"{len(slab_tc)} bf16 slab "
+          f"kernels, not {len(SLAB_WIDTHS)}, among {list(fa_sass)}")
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -3148,6 +3234,12 @@ def main() -> int:
         "every_head_dim": every_head_dim_check(dev),
         **{tag: fa_shape_rows(tag, shape, dev)
            for tag, shape in FA_WIDTH_SHAPES}}
+    # head dims above 256: O in slabs, each its own block
+    rows["flash_attention"]["slabs"] = {
+        "widths": list(SLAB_WIDTHS), "build_all_s": build_s,
+        "info": [i for i in fa_info if i["slabs"] > 1],
+        **{tag: fa_shape_rows(tag, shape, dev)
+           for tag, shape in FA_SLAB_SHAPES}}
     # the families' other bf16 launch shapes
     family_shapes = []
     for tag, shape, causal in FA_FAMILY_SHAPES:
@@ -3310,6 +3402,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train["recovery"] = recovery_phase(run_phase)
     train["llama3_8b_prefill"] = llama_prefill_phase(run_phase, dev)
+    torch.cuda.empty_cache()
+    rows["flash_attention"]["slabs"]["prefill"] = slab_prefill_phase(
+        run_phase, dev)
     torch.cuda.empty_cache()
 
     cfg, model, params, tokens = prefill_model(rng, dev)

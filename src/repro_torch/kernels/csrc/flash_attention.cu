@@ -21,13 +21,20 @@
 // oracle would give NaN). Ragged Sq and Skv are masked in the kernels, so
 // every shape reaches them, and q, k, v are read through their strides
 // (last axis contiguous): the model's [B, S, H, D] projections need no
-// copy. Like the TPU kernel they take any head dim (up to 256 here): each
-// is built for the widths 16, 32, 64, 96, 128, 160, 192 and 256, and a
-// head dim d runs on the next width up, its tiles zero-filled past d in
-// shared memory, so O's columns past d come out 0; O is stored in rows of
-// the width, of which the wrapper returns the first d columns. The
-// padding costs up to width / d of the math and of O's bytes, none of the
-// inputs'.
+// copy. Like the TPU kernel they take any head dim. Up to 256 each is
+// built for the widths 16, 32, 64, 96, 128, 160, 192 and 256, and a head
+// dim d runs on the next width up, its tiles zero-filled past d in shared
+// memory, so O's columns past d come out 0; O is stored in rows of the
+// width, of which the wrapper returns the first d columns. The padding
+// costs up to width / d of the math and of O's bytes, none of the inputs'.
+// Above 256 neither O of the whole head dim a thread nor Q and K/V tiles
+// of it in shared memory fit, so O is cut into n slabs of one width W of
+// 128, 160, 192 and 256 (n W >= d in the fewest columns, at most 1.25 d
+// up to d = 4096), each slab its own block: it computes S = Q K^T over all
+// of d, in panels or chunks of Q and K streamed through shared memory, and
+// O for its W columns of V (flash_attention_{tc,f32}_slab_kernel below).
+// S is computed once a slab: n times in all, 1.5x the least operations at
+// d = 512 and 2.5x at 1024.
 //
 // bf16 (flash_attention_bf16), FA3-style, for sm_90a:
 //   * one 384-thread block per (head, batch, 128-query tile); the tiles
@@ -149,34 +156,34 @@ struct Params {
   float scale_log2;    // scale * log2(e)
 };
 
-// Rows r0 .. r0 + ROWS - 1 of an operand whose rows of d floats lie `ld`
-// elements apart, into shared memory at dst with a row pitch of D + 4
-// floats; rows at or past n and columns at or past d are zero-filled.
-// vec: 16-byte copies (base, pitch and d on 16 bytes), else 4-byte copies.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(uint32_t dst, const float* g,
-                                          long long ld, int r0, int n, int d,
-                                          bool vec) {
-  constexpr int RP = D + 4;
+// Rows r0 .. r0 + ROWS - 1, columns 0 .. COLS - 1 of an operand whose rows
+// lie `ld` elements apart from g (at the block's first column), into
+// shared memory at dst with a row pitch of PITCH floats; rows at or past n
+// and columns at or past d (what is left of the row from g) are
+// zero-filled. vec: 16-byte copies, else 4-byte copies.
+template <int COLS, int PITCH, int ROWS>
+__device__ __forceinline__ void load_block(uint32_t dst, const float* g,
+                                           long long ld, int r0, int n,
+                                           int d, bool vec) {
   if (vec) {
-    constexpr int CH = D / 4;  // 16-byte chunks a row
+    constexpr int CH = COLS / 4;
 #pragma unroll
     for (int it = 0; it < ROWS * CH / THREADS; ++it) {
       const int e = threadIdx.x + it * THREADS;
       const int r = e / CH;
       const int c = (e % CH) * 4;
       const bool in = r0 + r < n && c < d;
-      cp_async16(dst + (r * RP + c) * 4, in ? g + (r0 + r) * ld + c : g,
+      cp_async16(dst + (r * PITCH + c) * 4, in ? g + (r0 + r) * ld + c : g,
                  in ? 16 : 0);
     }
   } else {
 #pragma unroll 4
-    for (int it = 0; it < ROWS * D / THREADS; ++it) {
+    for (int it = 0; it < ROWS * COLS / THREADS; ++it) {
       const int e = threadIdx.x + it * THREADS;
-      const int r = e / D;
-      const int c = e % D;
+      const int r = e / COLS;
+      const int c = e % COLS;
       const bool in = r0 + r < n && c < d;
-      cp_async4(dst + (r * RP + c) * 4, in ? g + (r0 + r) * ld + c : g,
+      cp_async4(dst + (r * PITCH + c) * 4, in ? g + (r0 + r) * ld + c : g,
                 in ? 4 : 0);
     }
   }
@@ -217,9 +224,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* kg = p.k + bb * p.ks[0] + hk * p.ks[1];
   const float* vg = p.v + bb * p.vs[0] + hk * p.vs[1];
   if (n_tiles > 0) {
-    load_rows<D, BQ>(qs_a, qg, p.qs[2], q0, p.sq, p.d, p.vec & 1);
-    load_rows<D, BK>(ks_a, kg, p.ks[2], k_begin, p.skv, p.d,
-                      p.vec & 2);
+    load_block<D, C::RP, BQ>(qs_a, qg, p.qs[2], q0, p.sq, p.d, p.vec & 1);
+    load_block<D, C::RP, BK>(ks_a, kg, p.ks[2], k_begin, p.skv, p.d,
+                             p.vec & 2);
     cp_async_commit();
   }
 
@@ -238,7 +245,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int k0 = k_begin + t * BK;
     cp_async_wait<0>();
     __syncthreads();  // K(t) (and Q) have landed; V and P are free
-    load_rows<D, BK>(vs_a, vg, p.vs[2], k0, p.skv, p.d, p.vec & 4);
+    load_block<D, C::RP, BK>(vs_a, vg, p.vs[2], k0, p.skv, p.d, p.vec & 4);
     cp_async_commit();  // V(t) lands under S(t)
 
     // S = Q K^T: rows ty + 16 i, keys tx + 16 j, both along D in shared
@@ -319,8 +326,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_wait<0>();
     __syncthreads();  // V(t) has landed and P is written; K(t) is free
     if (t + 1 < n_tiles)
-      load_rows<D, BK>(ks_a, kg, p.ks[2], k0 + BK, p.skv, p.d,
-                       p.vec & 2);
+      load_block<D, C::RP, BK>(ks_a, kg, p.ks[2], k0 + BK, p.skv, p.d,
+                               p.vec & 2);
     cp_async_commit();  // K(t + 1) lands under P V(t)
 
     // O += P V: rows ty + 16 i, columns 16 CW g + CW tx + c
@@ -440,6 +447,278 @@ int info_tile(int bq, int* regs, int* local_bytes, int* smem_bytes) {
     if (bq == 128) return info_d<D, 128>(regs, local_bytes, smem_bytes);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// -- head dims above 256: O in slabs of W columns, one block a slab ---------
+// A block computes S = Q K^T over the whole head dim d, in chunks of
+// SLAB_DC columns of Q and K double-buffered by cp.async (rows of d do not
+// fit in shared memory above 256), and O for its W columns of V only.
+constexpr int SLAB_DC = 128;  // columns of a Q or K chunk
+
+template <int W>
+struct SlabCfg {
+  static constexpr int BQ = 64;   // query rows a block (R = 4 a thread)
+  static constexpr int R = BQ / 16;
+  static constexpr int CW = W % 64 == 0 ? 4 : 2;   // 160: float2 groups
+  static constexpr int CG = W / (16 * CW);
+  static constexpr int NC = CW * CG;               // columns of O a thread
+  static constexpr int CP = SLAB_DC + 4;           // row pitch of a chunk
+  static constexpr int VP = W + 4;                 // row pitch of V
+  static constexpr int PP = BK + 16;               // row pitch of P
+  static constexpr int QC_FLOATS = BQ * CP;
+  static constexpr int KC_FLOATS = BK * CP;
+  static constexpr int V_FLOATS = BK * VP;
+  // two Q and two K chunks, V and P: 222,208 bytes at W = 256
+  static constexpr int SMEM =
+      (2 * (QC_FLOATS + KC_FLOATS) + V_FLOATS + BQ * PP) * 4;
+  static_assert(CW * CG * 16 == W, "the column groups tile W");
+  static_assert(BK * W % (4 * THREADS) == 0, "whole 16-byte chunks of V");
+};
+
+struct SlabParams : Params {
+  int slabs;  // n: out is [B, H, Sq, n W], slab blockIdx.x % n its columns
+};
+
+template <int W>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_f32_slab_kernel(const SlabParams p) {
+  using C = SlabCfg<W>;
+  constexpr int BQ = C::BQ;
+  extern __shared__ float4 smem_f4[];
+  float* qs = reinterpret_cast<float*>(smem_f4);  // [2][BQ][CP]
+  float* ks = qs + 2 * C::QC_FLOATS;              // [2][BK][CP]
+  float* vs = ks + 2 * C::KC_FLOATS;              // [BK][VP]
+  float* ps = vs + C::V_FLOATS;                   // [BQ][PP]
+  const uint32_t qs_a = smem_addr(qs);
+  const uint32_t ks_a = smem_addr(ks);
+  const uint32_t vs_a = smem_addr(vs);
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int hh = blockIdx.x / p.slabs;
+  const int slab = blockIdx.x % p.slabs;
+  const int bb = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest tiles first
+  const int hk = hh / p.group;
+  const int pos_offset = p.skv - p.sq;
+
+  const int q_first = q0 + pos_offset;
+  const int q_last = min(q0 + BQ, p.sq) - 1 + pos_offset;
+  int k_end = p.skv;
+  if (p.causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q_first - p.window + 1);
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const int chunks = (p.d + SLAB_DC - 1) / SLAB_DC;
+  const int v0 = slab * W;  // this slab's first column
+
+  const float* qg = p.q + bb * p.qs[0] + hh * p.qs[1];
+  const float* kg = p.k + bb * p.ks[0] + hk * p.ks[1];
+  const float* vg = p.v + bb * p.vs[0] + hk * p.vs[1] + v0;
+  // chunk c of Q and of the key tile at k0 into buffer c % 2
+  auto load_chunk = [&](int c, int k0) {
+    const int c0 = c * SLAB_DC;
+    const uint32_t buf = c & 1;
+    load_block<SLAB_DC, C::CP, BQ>(qs_a + buf * C::QC_FLOATS * 4, qg + c0,
+                                   p.qs[2], q0, p.sq, p.d - c0, p.vec & 1);
+    load_block<SLAB_DC, C::CP, BK>(ks_a + buf * C::KC_FLOATS * 4, kg + c0,
+                                   p.ks[2], k0, p.skv, p.d - c0, p.vec & 2);
+  };
+  if (n_tiles > 0) {
+    load_chunk(0, k_begin);
+    cp_async_commit();
+  }
+
+  float o[C::R][C::NC];
+  float m[C::R];
+  float l[C::R];  // this thread's keys only, until the end
+#pragma unroll
+  for (int i = 0; i < C::R; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C::NC; ++c) o[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    float s[C::R][KJ];
+#pragma unroll
+    for (int i = 0; i < C::R; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+
+    // S = Q K^T, chunk by chunk: chunk c + 1 (and V(t) under chunk 0)
+    // lands under chunk c's FMAs
+    for (int c = 0; c < chunks; ++c) {
+      cp_async_wait<0>();
+      __syncthreads();  // chunk c has landed; the other buffer, V, P free
+      if (c == 0)
+        load_block<W, C::VP, BK>(vs_a, vg, p.vs[2], k0, p.skv, p.d - v0,
+                                 p.vec & 4);
+      if (c + 1 < chunks) load_chunk(c + 1, k0);
+      cp_async_commit();
+      const float* qc = qs + (c & 1) * C::QC_FLOATS;
+      const float* kc = ks + (c & 1) * C::KC_FLOATS;
+#pragma unroll 16
+      for (int d = 0; d < SLAB_DC; d += 4) {
+        float4 kf[KJ];
+#pragma unroll
+        for (int j = 0; j < KJ; ++j)
+          kf[j] = *reinterpret_cast<const float4*>(kc + (tx + 16 * j) * C::CP +
+                                                   d);
+#pragma unroll
+        for (int i = 0; i < C::R; ++i) {
+          const float4 qf = *reinterpret_cast<const float4*>(
+              qc + (ty + 16 * i) * C::CP + d);
+#pragma unroll
+          for (int j = 0; j < KJ; ++j) {
+            s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+            s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+            s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+            s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < C::R; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] *= p.scale_log2;
+    const bool edge = k0 + BK > p.skv || (p.causal && k0 + BK - 1 > q_first) ||
+                      (p.window > 0 && k0 <= q_last - p.window);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < C::R; ++i) {
+        const int qpos = q0 + ty + 16 * i + pos_offset;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const int kpos = k0 + tx + 16 * j;
+          bool keep = kpos < p.skv;
+          if (p.causal) keep = keep && kpos <= qpos;
+          if (p.window > 0) keep = keep && kpos > qpos - p.window;
+          if (!keep) s[i][j] = -INFINITY;
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < C::R; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < KJ; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = 1; off < 16; off *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+      const float alpha = exp2f(m[i] - m_use);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < C::NC; ++c) o[i][c] *= alpha;
+      float* prow = ps + (ty + 16 * i) * C::PP + tx;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const float e = exp2f(s[i][j] - m_use);
+        l[i] += e;
+        prow[16 * j] = e;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // V(t) has landed and P is written; the chunks are free
+    if (t + 1 < n_tiles) load_chunk(0, k0 + BK);
+    cp_async_commit();  // chunk 0 of tile t + 1 lands under P V(t)
+
+    // O += P V over this slab's W columns
+#pragma unroll 4
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pf[C::R];
+#pragma unroll
+      for (int i = 0; i < C::R; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * C::PP +
+                                                 kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vrow = vs + (kk + u) * C::VP + tx * C::CW;
+        float vv[C::NC];
+#pragma unroll
+        for (int g = 0; g < C::CG; ++g) {
+          if constexpr (C::CW == 4) {
+            const float4 w =
+                *reinterpret_cast<const float4*>(vrow + g * 16 * C::CW);
+            vv[4 * g] = w.x;
+            vv[4 * g + 1] = w.y;
+            vv[4 * g + 2] = w.z;
+            vv[4 * g + 3] = w.w;
+          } else {
+            const float2 w =
+                *reinterpret_cast<const float2*>(vrow + g * 16 * C::CW);
+            vv[2 * g] = w.x;
+            vv[2 * g + 1] = w.y;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < C::R; ++i) {
+          const float pv = part(pf[i], u);
+#pragma unroll
+          for (int c = 0; c < C::NC; ++c) o[i][c] = fmaf(pv, vv[c], o[i][c]);
+        }
+      }
+    }
+  }
+
+  const long long pitch = static_cast<long long>(p.slabs) * W;
+  float* og = p.out + (static_cast<long long>(bb) * p.h + hh) *
+                          static_cast<long long>(p.sq) * pitch + v0;
+#pragma unroll
+  for (int i = 0; i < C::R; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off *= 2)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + ty + 16 * i;
+    if (row >= p.sq) continue;
+    const float inv = (l[i] == 0.f) ? 0.f : 1.f / l[i];
+    float* orow = og + row * pitch + tx * C::CW;
+#pragma unroll
+    for (int g = 0; g < C::CG; ++g) {
+      if constexpr (C::CW == 4) {
+        *reinterpret_cast<float4*>(orow + g * 16 * C::CW) =
+            make_float4(o[i][4 * g] * inv, o[i][4 * g + 1] * inv,
+                        o[i][4 * g + 2] * inv, o[i][4 * g + 3] * inv);
+      } else {
+        *reinterpret_cast<float2*>(orow + g * 16 * C::CW) =
+            make_float2(o[i][2 * g] * inv, o[i][2 * g + 1] * inv);
+      }
+    }
+  }
+}
+
+template <int W>
+int launch_slabs(const SlabParams& p, int batch, cudaStream_t stream) {
+  using C = SlabCfg<W>;
+  static SmemOptIn opt_in;
+  const cudaError_t err = opt_in(
+      reinterpret_cast<const void*>(flash_attention_f32_slab_kernel<W>),
+      C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.h * p.slabs, batch, (p.sq + C::BQ - 1) / C::BQ);
+  flash_attention_f32_slab_kernel<W><<<grid, THREADS, C::SMEM, stream>>>(p);
+  REPRO_LAUNCH_RESULT();
+}
+
+template <int W>
+int info_slabs(int* regs, int* local_bytes, int* smem_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, flash_attention_f32_slab_kernel<W>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  *smem_bytes = SlabCfg<W>::SMEM;
+  return 0;
 }
 
 }  // namespace simt
@@ -1066,6 +1345,364 @@ int info_d(int* regs, int* local_bytes, int* smem_bytes) {
   return 0;
 }
 
+// -- head dims above 256: O in slabs of W columns, one block a slab ---------
+// Neither Q and a K/V ring of the whole head dim nor O of it a thread fit
+// above 256, so a block computes S = Q K^T over d in panels of 64 columns
+// (128-byte swizzle), K's panels streaming through a ring, and O for its
+// W columns only: the consumers hold W / 2 f32 of O, as the kernel of
+// width W does. Q stays in shared memory up to Q_RESIDENT panels (d <=
+// 512); above that its panels stream through the ring beside K's.
+template <int W>
+struct SlabCfg {
+  static constexpr int BK = 64;          // keys a tile
+  static constexpr int QK_SW = 128;      // Q and K panels: 64 columns
+  static constexpr int QK_PW = QK_SW / 2;
+  static constexpr int Q_PANEL = BQ * QK_SW;   // 16 KB
+  static constexpr int K_PANEL = BK * QK_SW;   // 8 KB
+  static constexpr int Q_RESIDENT = 8;   // panels of Q kept: 128 KB
+  static constexpr int K_STAGES = 4;     // panel ring (K, and Q streamed)
+  static constexpr int V_STAGES = 2;
+  // V's slab as the kernel of width W lays V out: panels of one swizzle
+  // span, 128 bytes where 64 divides W, 64 at W = 160
+  static constexpr int SW = W % 64 == 0 ? 128 : 64;
+  static constexpr int PW = SW / 2;
+  static constexpr int V_PANELS = W / PW;
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;
+  static constexpr int V_BYTES = BK * W * 2;
+  static constexpr int K_OFF = Q_RESIDENT * Q_PANEL;
+  static constexpr int V_OFF = K_OFF + K_STAGES * K_PANEL;
+  static constexpr int BAR_OFF = V_OFF + V_STAGES * V_BYTES;
+  // barriers: Q, full and empty for each panel stage and each V stage
+  // (230,504 bytes at W = 256)
+  static constexpr int SMEM =
+      BAR_OFF + 8 * (1 + 2 * K_STAGES + 2 * V_STAGES) + 1024;
+  static_assert(V_BYTES % 1024 == 0, "swizzled tiles stay 1024-byte aligned");
+  static_assert(SMEM <= 232448, "one block fits in an SM's shared memory");
+};
+
+struct SlabParams {
+  CUtensorMap qmap, kmap;  // [B, H, S, d], boxes of 64 columns
+  CUtensorMap vmap;        // boxes of V's panel width
+  void* out;               // [B, H, Sq, slabs * W], contiguous
+  int h, group, sq, skv;
+  int causal, window;      // window <= 0: none
+  int d;                   // the head dim, 257 and up
+  int slabs;               // blockIdx.x = head * slabs + slab
+  int panels;              // 64-column panels of d
+  float scale_log2;        // scale * log2(e)
+};
+
+template <int W>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_tc_slab_kernel(const __grid_constant__ SlabParams p) {
+  using C = SlabCfg<W>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + C::K_OFF;
+  const uint32_t v_s = base + C::V_OFF;
+  const uint32_t q_bar = base + C::BAR_OFF;
+  const uint32_t full_k = q_bar + 8;
+  const uint32_t empty_k = full_k + 8 * C::K_STAGES;
+  const uint32_t full_v = empty_k + 8 * C::K_STAGES;
+  const uint32_t empty_v = full_v + 8 * C::V_STAGES;
+
+  const int hh = blockIdx.x / p.slabs;
+  const int slab = blockIdx.x % p.slabs;
+  const int bb = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest tiles first
+  const int hk = hh / p.group;
+  const int pos_offset = p.skv - p.sq;
+  const bool q_stream = p.panels > C::Q_RESIDENT;
+
+  const int q_first = q0 + pos_offset;
+  const int q_last = min(q0 + BQ, p.sq) - 1 + pos_offset;
+  int k_end = p.skv;
+  if (p.causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q_first - p.window + 1);
+  k_begin = (k_begin / C::BK) * C::BK;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + C::BK - 1) / C::BK : 0;
+  // V panels of this slab that reach into d; the others (in the last slab)
+  // are zeroed once here and never loaded, so no TMA box lies wholly
+  // outside the tensor and O's columns past d come out 0
+  const int v_panels =
+      min(C::V_PANELS, (p.d - slab * W + C::PW - 1) / C::PW);
+  if (v_panels < C::V_PANELS) {
+    uint8_t* vz = smem_raw + (v_s - smem_addr(smem_raw));
+    constexpr int CHUNKS = C::V_BYTES / 16;  // 16-byte chunks a stage
+    for (int i = v_panels * C::BK * C::SW / 16 + threadIdx.x; i < CHUNKS;
+         i += THREADS)
+#pragma unroll
+      for (int st = 0; st < C::V_STAGES; ++st)
+        reinterpret_cast<uint4*>(vz + st * C::V_BYTES)[i] =
+            make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < C::K_STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 2 * 128);  // every consumer thread
+    }
+    for (int s = 0; s < C::V_STAGES; ++s) {
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_v + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == PRODUCER_WG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == PRODUCER_WG * 128 && n_tiles > 0) {
+      if (!q_stream) {
+        mbar_expect_tx(q_bar, p.panels * C::Q_PANEL);
+        for (int pn = 0; pn < p.panels; ++pn)
+          tma_load(q_s + pn * C::Q_PANEL, &p.qmap, q_bar, pn * C::QK_PW, q0,
+                   hh, bb);
+      }
+      int g = 0;  // panels through the ring so far
+      for (int t = 0; t < n_tiles; ++t) {
+        const int k0 = k_begin + t * C::BK;
+        for (int pn = 0; pn < p.panels; ++pn, ++g) {
+          const int s = g % C::K_STAGES;
+          mbar_wait(empty_k + 8 * s, ((g / C::K_STAGES) & 1) ^ 1);
+          mbar_expect_tx(full_k + 8 * s,
+                         C::K_PANEL + (q_stream ? C::Q_PANEL : 0));
+          tma_load(k_s + s * C::K_PANEL, &p.kmap, full_k + 8 * s,
+                   pn * C::QK_PW, k0, hk, bb);
+          if (q_stream)
+            tma_load(q_s + s * C::Q_PANEL, &p.qmap, full_k + 8 * s,
+                     pn * C::QK_PW, q0, hh, bb);
+        }
+        const int vs = t % C::V_STAGES;
+        mbar_wait(empty_v + 8 * vs, ((t / C::V_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full_v + 8 * vs, v_panels * C::BK * C::SW);
+        for (int pn = 0; pn < v_panels; ++pn)
+          tma_load(v_s + vs * C::V_BYTES + pn * C::BK * C::SW, &p.vmap,
+                   full_v + 8 * vs, slab * W + pn * C::PW, k0, hk, bb);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    // accumulator element (c, i, j) of this thread: row row0 + 8 i of the
+    // tile, column 8 c + col0 + j, register 4 c + 2 i + j
+    const int row0 = wg * 64 + (tid / 32) * 16 + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    const int wg_qmin = q0 + wg * 64 + pos_offset;
+    const int wg_qmax = wg_qmin + 63;
+
+    float o[W / 2];
+    float s[C::BK / 2];
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) s[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this thread's columns only, until the end
+
+    if (n_tiles > 0 && !q_stream) mbar_wait(q_bar, 0);
+    int g = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int vs = t % C::V_STAGES;
+      const int k0 = k_begin + t * C::BK;
+
+      // S = Q K^T panel by panel; a panel's stage is released once the
+      // next panel's products are issued and its own are done
+      for (int pn = 0; pn < p.panels; ++pn, ++g) {
+        const int st = g % C::K_STAGES;
+        mbar_wait(full_k + 8 * st, (g / C::K_STAGES) & 1);
+        const uint32_t qp =
+            q_s + (q_stream ? st : pn) * C::Q_PANEL + wg * 64 * C::QK_SW;
+        const uint32_t kp = k_s + st * C::K_PANEL;
+        pin(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::QK_PW / 16; ++kk)
+          wgmma_ss<0>(s, make_desc(qp + kk * 32, 16, 8 * C::QK_SW, 1),
+                      make_desc(kp + kk * 32, 16, 8 * C::QK_SW, 1),
+                      pn > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        pin(s);
+        if (pn > 0) mbar_arrive(empty_k + 8 * ((g - 1) % C::K_STAGES));
+      }
+      wgmma_wait_all();
+      pin(s);
+      mbar_arrive(empty_k + 8 * ((g - 1) % C::K_STAGES));
+
+#pragma unroll
+      for (int i = 0; i < C::BK / 2; ++i) s[i] *= p.scale_log2;
+      const bool edge = k0 + C::BK > p.skv ||
+                        (p.causal && k0 + C::BK - 1 > wg_qmin) ||
+                        (p.window > 0 && k0 <= wg_qmax - p.window);
+      if (edge) {
+#pragma unroll
+        for (int c = 0; c < C::BK / 8; ++c)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int kpos = k0 + 8 * c + col0 + j;
+              const int qpos = q0 + row0 + 8 * i + pos_offset;
+              bool keep = kpos < p.skv;
+              if (p.causal) keep = keep && kpos <= qpos;
+              if (p.window > 0) keep = keep && kpos > qpos - p.window;
+              if (!keep) s[4 * c + 2 * i + j] = -INFINITY;
+            }
+      }
+
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int c = 0; c < C::BK / 8; ++c)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            mx[i] = fmaxf(mx[i], s[4 * c + 2 * i + j]);
+      float m_use[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        m_use[i] = (m_new == -INFINITY) ? 0.f : m_new;
+        alpha[i] = exp2f(m[i] - m_use[i]);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int c = 0; c < W / 8; ++c)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          o[4 * c + 2 * i] *= alpha[i];
+          o[4 * c + 2 * i + 1] *= alpha[i];
+        }
+      uint32_t p_hi[C::BK / 4];
+      uint32_t p_lo[C::BK / 4];
+#pragma unroll
+      for (int c = 0; c < C::BK / 8; ++c)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float e0 = exp2f(s[4 * c + 2 * i] - m_use[i]);
+          const float e1 = exp2f(s[4 * c + 2 * i + 1] - m_use[i]);
+          l[i] += e0 + e1;
+          const __nv_bfloat16 h0 = __float2bfloat16_rn(e0);
+          const __nv_bfloat16 h1 = __float2bfloat16_rn(e1);
+          p_hi[2 * c + i] = pack(h0, h1);
+          p_lo[2 * c + i] = pack(__float2bfloat16_rn(e0 - __bfloat162float(h0)),
+                                 __float2bfloat16_rn(e1 - __bfloat162float(h1)));
+        }
+
+      // O += P_hi V + P_lo V over this slab's W columns of V
+      mbar_wait(full_v + 8 * vs, (t / C::V_STAGES) & 1);
+      const uint32_t vt = v_s + vs * C::V_BYTES;
+      pin(o);
+      pin(p_hi);
+      pin(p_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk)
+        wgmma_rs(o, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2],
+                 p_hi[4 * kk + 3],
+                 make_desc(vt + kk * 16 * C::SW, C::BK * C::SW, 8 * C::SW,
+                           C::LAYOUT));
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk)
+        wgmma_rs(o, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2],
+                 p_lo[4 * kk + 3],
+                 make_desc(vt + kk * 16 * C::SW, C::BK * C::SW, 8 * C::SW,
+                           C::LAYOUT));
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(o);
+      pin(p_hi);
+      pin(p_lo);
+      mbar_arrive(empty_v + 8 * vs);
+    }
+
+    const long long pitch = static_cast<long long>(p.slabs) * W;
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out) +
+                        (static_cast<long long>(bb) * p.h + hh) *
+                            static_cast<long long>(p.sq) * pitch +
+                        slab * W;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int row = q0 + row0 + 8 * i;
+      if (row >= p.sq) continue;
+      const float inv = (l[i] == 0.f) ? 0.f : 1.f / l[i];
+      __nv_bfloat16* orow = og + row * pitch + col0;
+#pragma unroll
+      for (int c = 0; c < W / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+            __floats2bfloat162_rn(o[4 * c + 2 * i] * inv,
+                                  o[4 * c + 2 * i + 1] * inv);
+    }
+  }
+}
+
+template <int W>
+int launch_slabs(const void* q, const void* k, const void* v, void* out,
+                 const long long* qs, const long long* ks, const long long* vs,
+                 int batch, int h, int hkv, int sq, int skv, int d, int slabs,
+                 int causal, int window, float scale, cudaStream_t stream) {
+  using C = SlabCfg<W>;
+  if (slabs < 1 || d <= (slabs - 1) * W || d > slabs * W)
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  SlabParams p;
+  if (!encode(fn, &p.qmap, q, d, sq, h, batch, qs, BQ, C::QK_SW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (skv > 0) {
+    if (!encode(fn, &p.kmap, k, d, skv, hkv, batch, ks, C::BK, C::QK_SW) ||
+        !encode(fn, &p.vmap, v, d, skv, hkv, batch, vs, C::BK, C::SW))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {  // no key tile is loaded; any valid map will do
+    p.kmap = p.qmap;
+    p.vmap = p.qmap;
+  }
+  p.out = out;
+  p.h = h;
+  p.group = h / hkv;
+  p.sq = sq;
+  p.skv = skv;
+  p.causal = causal;
+  p.window = window;
+  p.d = d;
+  p.slabs = slabs;
+  p.panels = (d + C::QK_PW - 1) / C::QK_PW;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  static SmemOptIn opt_in;
+  const cudaError_t err = opt_in(
+      reinterpret_cast<const void*>(flash_attention_tc_slab_kernel<W>),
+      C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(h * slabs, batch, (sq + BQ - 1) / BQ);
+  flash_attention_tc_slab_kernel<W><<<grid, THREADS, C::SMEM, stream>>>(p);
+  REPRO_LAUNCH_RESULT();
+}
+
+template <int W>
+int info_slabs(int* regs, int* local_bytes, int* smem_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err =
+      cudaFuncGetAttributes(&a, flash_attention_tc_slab_kernel<W>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  *smem_bytes = SlabCfg<W>::SMEM;
+  return 0;
+}
+
 }  // namespace tc
 
 // Calls f(std::integral_constant<int, D>{}) for the width D == width that
@@ -1081,6 +1718,20 @@ int by_width(int width, F&& f) {
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 160: return f(std::integral_constant<int, 160>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same for the slab widths of head dims above 256 (flash_attention.py's
+// SLAB_WIDTHS): with n slabs of the fewest columns n W >= d, no head dim
+// from 257 to 4096 runs more than 1.25x wide.
+template <class F>
+int by_slab_width(int width, F&& f) {
+  switch (width) {
     case 128: return f(std::integral_constant<int, 128>{});
     case 160: return f(std::integral_constant<int, 160>{});
     case 192: return f(std::integral_constant<int, 192>{});
@@ -1157,5 +1808,82 @@ extern "C" int flash_attention_f32_info(int width, int bq, int* regs,
   return by_width(width, [&](auto w) {
     return simt::info_tile<decltype(w)::value>(bq, regs, local_bytes,
                                                smem_bytes);
+  });
+}
+
+// Attention at a head dim d above 256 in `slabs` slabs of `width` columns
+// ((slabs - 1) width < d <= slabs width), one block a slab: out is
+// [B, H, Sq, slabs * width], its columns past d zero.
+extern "C" int flash_attention_f32_slabs(const void* q, const void* k,
+                                         const void* v, void* out,
+                                         const long long* qs,
+                                         const long long* ks,
+                                         const long long* vs, int batch,
+                                         int h, int hkv, int sq, int skv,
+                                         int d, int width, int slabs,
+                                         int causal, int window, float scale,
+                                         int vec, void* stream) {
+  if (slabs < 1 || d <= (slabs - 1) * width || d > slabs * width)
+    return static_cast<int>(cudaErrorInvalidValue);
+  simt::SlabParams p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.out = static_cast<float*>(out);
+  for (int i = 0; i < 3; ++i) {
+    p.qs[i] = qs[i];
+    p.ks[i] = ks[i];
+    p.vs[i] = vs[i];
+  }
+  p.d = d;
+  p.h = h;
+  p.group = h / hkv;
+  p.sq = sq;
+  p.skv = skv;
+  p.causal = causal;
+  p.window = window;
+  p.vec = vec;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  p.slabs = slabs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_slab_width(width, [&](auto w) {
+    return simt::launch_slabs<decltype(w)::value>(p, batch, s);
+  });
+}
+
+extern "C" int flash_attention_bf16_slabs(const void* q, const void* k,
+                                          const void* v, void* out,
+                                          const long long* qs,
+                                          const long long* ks,
+                                          const long long* vs, int batch,
+                                          int h, int hkv, int sq, int skv,
+                                          int d, int width, int slabs,
+                                          int causal, int window, float scale,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_slab_width(width, [&](auto w) {
+    return tc::launch_slabs<decltype(w)::value>(q, k, v, out, qs, ks, vs,
+                                                batch, h, hkv, sq, skv, d,
+                                                slabs, causal, window, scale,
+                                                s);
+  });
+}
+
+// Registers a thread, local (spill) bytes a thread and dynamic shared
+// memory a block of the slab kernels of `width`; launches nothing.
+extern "C" int flash_attention_bf16_slabs_info(int width, int* regs,
+                                               int* local_bytes,
+                                               int* smem_bytes) {
+  return by_slab_width(width, [&](auto w) {
+    return tc::info_slabs<decltype(w)::value>(regs, local_bytes, smem_bytes);
+  });
+}
+
+extern "C" int flash_attention_f32_slabs_info(int width, int* regs,
+                                              int* local_bytes,
+                                              int* smem_bytes) {
+  return by_slab_width(width, [&](auto w) {
+    return simt::info_slabs<decltype(w)::value>(regs, local_bytes,
+                                                smem_bytes);
   });
 }

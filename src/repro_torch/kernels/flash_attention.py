@@ -15,12 +15,16 @@ tile does not fit in shared memory or its output in registers
 (:func:`f32_query_tile`); bf16 takes key tiles of 64 there for the same
 reasons. Both take GQA by indexing the K/V head, causal and local-window
 masks on right-aligned positions, and skip the key tiles outside the
-masks. Like the TPU kernel, both take any head dim, here from 1 to
-:data:`MAX_HEAD_DIM`: each is built for the widths :data:`HEAD_DIMS`, and
-a head dim runs on the next width up (:func:`kernel_width`), its tiles
-zero-filled past it. :func:`flash_attention` takes the plain version for
-CPU tensors and launches a kernel for CUDA tensors; there is no other
-path.
+masks. Like the TPU kernel, both take any head dim D >= 1. Up to
+:data:`MAX_KERNEL_WIDTH` each is built for the widths :data:`HEAD_DIMS`,
+and a head dim runs on the next width up (:func:`kernel_width`), its
+tiles zero-filled past it. Above it O is cut into n slabs of one of
+:data:`SLAB_WIDTHS` (:func:`kernel_slabs`), each computed by its own
+block, which takes S = QKᵀ over the whole head dim in panels (bf16) or
+chunks (f32) of Q and K streamed through shared memory: S is computed
+once a slab. :func:`flash_attention` takes the plain version for CPU
+tensors and launches a kernel for CUDA tensors, once a call; there is no
+other path.
 
 TMA reads a tensor where it lies only if its base address and outer
 strides are multiples of 16 bytes; :func:`kernel_operand` decides, per
@@ -40,8 +44,9 @@ import torch
 from . import ref
 from .build import CudaKernel, device_sm_count
 
-__all__ = ["KERNEL", "HEAD_DIMS", "MAX_HEAD_DIM", "F32_QUERY_TILES",
-           "flash_attention", "kernel_width", "kernel_info",
+__all__ = ["KERNEL", "HEAD_DIMS", "MAX_KERNEL_WIDTH", "SLAB_WIDTHS",
+           "F32_QUERY_TILES", "flash_attention", "kernel_width",
+           "kernel_slabs", "kernel_info",
            "kernel_operand", "tma_ready", "f32_vector_loads",
            "f32_query_tiles", "f32_query_tile"]
 
@@ -56,6 +61,10 @@ _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_float, ctypes.c_void_p)
 #: the f32 launch also takes the query tile and the copy widths (bits)
 _F32_ARGS = _ARGS[:-1] + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+#: the slab launches take the number of slabs after the width; f32 also
+#: the copy widths
+_SLAB_ARGS = _ARGS[:14] + (ctypes.c_int,) + _ARGS[14:]
+_F32_SLAB_ARGS = _SLAB_ARGS[:-1] + (ctypes.c_int, ctypes.c_void_p)
 _INFO_ARGS = (ctypes.c_int, ctypes.POINTER(ctypes.c_int),
               ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
 _F32_INFO_ARGS = (ctypes.c_int,) + _INFO_ARGS
@@ -66,8 +75,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 #: head dim above 16 runs less than 2x wide and one above 64 less than
 #: 1.5x (phi-2's 80 and phi-3-mini's 96 on 96)
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 256)
-#: the largest head dim the kernels take (the TPU kernel takes any)
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+#: the widest kernel: a head dim above it runs in slabs
+MAX_KERNEL_WIDTH = HEAD_DIMS[-1]
+#: widths of the slabs that head dims above MAX_KERNEL_WIDTH run in: with
+#: the fewest columns, no head dim from 257 to 4096 runs more than 1.25x
+#: wide (the worst, 385, on 3 x 160)
+SLAB_WIDTHS = (128, 160, 192, 256)
 #: f32 query tiles (rows a block): the large tile, and the one for grids
 #: that would leave SMs without a block
 F32_QUERY_TILES = (128, 64)
@@ -86,8 +99,12 @@ PV_VARIANT = "P split into bf16 hi + lo, two wgmma per k16 step"
 KERNEL = CudaKernel("flash_attention", "flash_attention.cu",
                     {"flash_attention_f32": _F32_ARGS,
                      "flash_attention_bf16": _ARGS,
+                     "flash_attention_f32_slabs": _F32_SLAB_ARGS,
+                     "flash_attention_bf16_slabs": _SLAB_ARGS,
                      "flash_attention_f32_info": _F32_INFO_ARGS,
-                     "flash_attention_bf16_info": _INFO_ARGS},
+                     "flash_attention_bf16_info": _INFO_ARGS,
+                     "flash_attention_f32_slabs_info": _INFO_ARGS,
+                     "flash_attention_bf16_slabs_info": _INFO_ARGS},
                     replaces="src/repro/kernels/flash_attention.py:88")
 
 
@@ -101,14 +118,25 @@ def tma_ready(t: torch.Tensor) -> bool:
         for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
+def kernel_slabs(d: int) -> tuple:
+    """How head dim ``d`` runs: ``(n, w)``, n slabs of the kernel of width
+    w, whose output rows are n w wide. Up to :data:`MAX_KERNEL_WIDTH` one
+    slab of the smallest of :data:`HEAD_DIMS` not below ``d``; above it
+    the fewest columns n w >= d over :data:`SLAB_WIDTHS`, a tie to the
+    fewer slabs. Raises ``ValueError`` below 1."""
+    if d < 1:
+        raise ValueError(f"flash_attention kernel takes head dims >= 1, "
+                         f"got {d}")
+    if d <= MAX_KERNEL_WIDTH:
+        return 1, next(w for w in HEAD_DIMS if w >= d)
+    return min(((-(-d // w), w) for w in SLAB_WIDTHS),
+               key=lambda nw: (nw[0] * nw[1], nw[0]))
+
+
 def kernel_width(d: int) -> int:
-    """The width of the kernel that runs head dim ``d``: the smallest of
-    :data:`HEAD_DIMS` not below it. Raises ``ValueError`` outside 1 ..
-    :data:`MAX_HEAD_DIM`."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head dims 1 to "
-                         f"{MAX_HEAD_DIM}, got {d}")
-    return next(w for w in HEAD_DIMS if w >= d)
+    """The width of the kernel that runs head dim ``d``: the width of its
+    slabs (:func:`kernel_slabs`)."""
+    return kernel_slabs(d)[1]
 
 
 def kernel_operand(t: torch.Tensor) -> torch.Tensor:
@@ -143,8 +171,9 @@ def f32_vector_loads(t: torch.Tensor) -> bool:
 def f32_query_tiles(d: int) -> tuple:
     """The f32 kernel's query tiles built for head dim ``d``'s width
     (:func:`kernel_width`): both of :data:`F32_QUERY_TILES`, or only 64
-    rows above :data:`F32_LARGE_TILE_MAX_D`."""
-    return F32_QUERY_TILES if kernel_width(d) <= F32_LARGE_TILE_MAX_D \
+    rows above :data:`F32_LARGE_TILE_MAX_D` and in slabs."""
+    n, width = kernel_slabs(d)
+    return F32_QUERY_TILES if n == 1 and width <= F32_LARGE_TILE_MAX_D \
         else F32_QUERY_TILES[1:]
 
 
@@ -168,20 +197,27 @@ def _strides(t: torch.Tensor) -> "ctypes.Array":
 def kernel_info(d: int, dtype: torch.dtype = torch.bfloat16,
                 query_tile: int = F32_QUERY_TILES[0]) -> Dict[str, object]:
     """The kernel of ``dtype`` that runs head dim ``d`` (the one built
-    for :func:`kernel_width` of it; f32: and ``query_tile``) as compiled:
-    registers a thread, local (spill) bytes a thread and dynamic shared
-    memory a block; bf16 also says how P enters the P·V product. Builds
-    the library; launches nothing."""
-    width = kernel_width(d)
+    for :func:`kernel_slabs` of it; f32 up to :data:`MAX_KERNEL_WIDTH`:
+    and ``query_tile``, in slabs always 64) as compiled: registers a
+    thread, local (spill) bytes a thread and dynamic shared memory a
+    block; bf16 also says how P enters the P·V product. Builds the
+    library; launches nothing."""
+    slabs, width = kernel_slabs(d)
     regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     out = ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem)
+    kind = "_slabs" if slabs > 1 else ""
     if dtype == torch.float32:
-        KERNEL.query("flash_attention_f32_info", width, query_tile, *out)
+        if slabs > 1:
+            query_tile = F32_QUERY_TILES[1]
+            KERNEL.query("flash_attention_f32_slabs_info", width, *out)
+        else:
+            KERNEL.query("flash_attention_f32_info", width, query_tile, *out)
         extra = {"query_tile": query_tile}
     else:
-        KERNEL.query("flash_attention_bf16_info", width, *out)
+        KERNEL.query(f"flash_attention_bf16{kind}_info", width, *out)
         extra = {"pv": PV_VARIANT}
-    return {"head_dim": d, "kernel_width": width, "dtype": str(dtype),
+    return {"head_dim": d, "kernel_width": width, "slabs": slabs,
+            "dtype": str(dtype),
             "registers": regs.value, "spill_bytes": local.value,
             "smem_bytes": smem.value, **extra}
 
@@ -195,29 +231,35 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"device, got {q.device}, {k.device}, {v.device}")
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    width = kernel_width(d)
+    slabs, width = kernel_slabs(d)
     q, k, v = (kernel_operand(t) for t in (q, k, v))
-    out = torch.empty((b, h, sq, width), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, sq, slabs * width), dtype=q.dtype,
+                      device=q.device)
     if not out.numel():
         return out[..., :d]
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _strides(q), _strides(k), _strides(v), b, h, hkv, sq, skv, d,
-            width, int(causal), window, scale)
+            width) + ((slabs,) if slabs > 1 else ()) + (int(causal), window,
+                                                         scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    kind = "_slabs" if slabs > 1 else ""
     if q.dtype == torch.float32:
-        tile = f32_query_tile(b, h, sq, device_sm_count(q.device.index), d)
         vec = sum(int(f32_vector_loads(t)) << i
                   for i, t in enumerate((q, k, v)))
-        KERNEL.launch("flash_attention_f32", *args, tile, vec, stream)
+        if slabs == 1:
+            args += (f32_query_tile(b, h, sq, device_sm_count(q.device.index),
+                                    d),)
+        KERNEL.launch(f"flash_attention_f32{kind}", *args, vec, stream)
     else:
-        KERNEL.launch("flash_attention_bf16", *args, stream)
+        KERNEL.launch(f"flash_attention_bf16{kind}", *args, stream)
     return out[..., :d]
 
 
 @_flash_attention_cuda.register_fake
 def _(q, k, v, causal, window, scale):
     b, h, sq, d = q.shape
-    return q.new_empty((b, h, sq, kernel_width(d)))[..., :d]
+    slabs, width = kernel_slabs(d)
+    return q.new_empty((b, h, sq, slabs * width))[..., :d]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -226,8 +268,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q ``[B,H,Sq,D]`` over k, v ``[B,Hkv,Skv,D]`` (Hkv
     divides H), with right-aligned query positions; the output has q's
     shape and dtype. A query that sees no key gives 0. On the card the
-    output is the first D columns of rows of :func:`kernel_width` (D):
-    contiguous where D is one of :data:`HEAD_DIMS`."""
+    output is the first D columns of rows n w wide, ``(n, w) =``
+    :func:`kernel_slabs` (D): contiguous where D is one of
+    :data:`HEAD_DIMS` or n w."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] or \
             k.shape[1] == 0 or q.shape[1] % k.shape[1]:
@@ -243,5 +286,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             v.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
-    kernel_width(q.shape[3])  # raises outside the head dims it takes
     return _flash_attention_cuda(q, k, v, causal, window or 0, scale)

@@ -23,12 +23,13 @@ from repro_torch.examples.mandelbrot_offload import run as run_offload
 from repro_torch.indexing import (build_wah_index, build_wah_index_numpy,
                                   wah_index_pipeline_actors)
 from repro_torch.kernels import KERNELS, ops, ref
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, MAX_HEAD_DIM,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                 MAX_KERNEL_WIDTH,
                                                  f32_query_tiles,
                                                  f32_vector_loads,
                                                  flash_attention, kernel_info,
-                                                 kernel_operand, kernel_width,
-                                                 tma_ready)
+                                                 kernel_operand, kernel_slabs,
+                                                 kernel_width, tma_ready)
 from repro_torch.kernels.matmul import INSTANTIATIONS
 from repro_torch.kernels.matmul import KERNEL as MATMUL_KERNEL
 from repro_torch.kernels.matmul import kernel_info as matmul_kernel_info
@@ -428,6 +429,15 @@ def test_mandelbrot_kernel_is_bit_exact(cuda_device, height, width,
     (1, 12, 1, 384, 384, 160, True, None),     # D = 160, GQA 12:1
     (2, 4, 2, 201, 333, 160, True, 100),       # D = 160, ragged, window
     (1, 2, 2, 200, 70, 160, True, 16),         # D = 160, Sq > Skv: blind rows
+    (1, 4, 2, 256, 256, 320, True, None),      # D = 320 on 2 x 160, GQA 2
+    (1, 8, 2, 520, 520, 320, True, 200),       # D = 320, GQA 4, window
+    (2, 4, 2, 201, 333, 272, True, None),      # D = 272, ragged Sq and Skv
+    (1, 4, 4, 150, 270, 384, False, None),     # D = 384 on 2 x 192, Sq < Skv
+    (1, 16, 4, 384, 384, 512, True, None),     # D = 512 on 2 x 256, GQA 4
+    (1, 8, 2, 520, 520, 512, True, 100),       # D = 512, window across tiles
+    (1, 2, 2, 200, 70, 512, True, 16),         # D = 512, Sq > Skv: blind rows
+    (1, 4, 1, 300, 300, 896, True, None),      # D = 896 on 7 x 128, Q streams
+    (2, 4, 2, 201, 333, 1024, True, 50),       # D = 1024 on 4 x 256, window
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)])
@@ -478,14 +488,16 @@ def test_flash_attention_reads_strided_bf16_projections(cuda_device):
     assert _launches()["flash_attention"] == before + 1
 
 
-@pytest.mark.parametrize("d", [32, 72, 80, 96, 160, 33])
+@pytest.mark.parametrize("d", [32, 72, 80, 96, 160, 33, 257, 272, 320, 384,
+                               512, 896, 1024])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_flash_attention_reads_strided_views_at_the_new_widths(
         cuda_device, d, dtype, tol):
     """[B,S,H,D] projections seen as [B,H,S,D] at the head dims the widths
-    32, 96 and 160 took on, in one launch; at D = 33 bf16 heads lie 66
-    bytes apart, so q, k, v go through the pitch copy."""
+    32, 96 and 160 took on and above 256 in slabs, in one launch; at D =
+    33 and 257 bf16 heads lie off 16 bytes, so q, k, v go through the
+    pitch copy (f32 at 257: 4-byte copies)."""
     g = torch.Generator(device=cuda_device).manual_seed(d)
     x = torch.randn(2, 300, 16, d, generator=g, device=cuda_device)
     kv = torch.randn(2, 300, 8, d, generator=g, device=cuda_device)
@@ -498,16 +510,19 @@ def test_flash_attention_reads_strided_views_at_the_new_widths(
     want = ref.flash_attention(q, k, v, causal=True, window=120)
     torch.cuda.synchronize()
     assert _launches()["flash_attention"] == before + 1
-    assert got.shape == q.shape and got.stride(2) == kernel_width(d)
+    n, w = kernel_slabs(d)
+    assert got.shape == q.shape and got.stride(2) == n * w
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_flash_attention_launches_at_every_head_dim(cuda_device, dtype, tol):
-    """Every head dim from 1 to 256 launches the kernel once, ragged, GQA
-    and causal, within the tolerance; none reaches the plain version."""
-    for d in range(1, MAX_HEAD_DIM + 1):
+    """Every head dim from 1 to 256, and head dims above it on each slab
+    width, launch the kernel once, ragged, GQA and causal, within the
+    tolerance; none reaches the plain version."""
+    above = (257, 272, 300, 320, 384, 448, 500, 512, 640, 896, 1024)
+    for d in (*range(1, MAX_KERNEL_WIDTH + 1), *above):
         g = torch.Generator(device=cuda_device).manual_seed(d)
         q = torch.randn(1, 4, 67, d, generator=g, device=cuda_device)
         k, v = (torch.randn(1, 2, 131, d, generator=g, device=cuda_device)
@@ -582,21 +597,24 @@ def test_flash_attention_repeats_exactly(cuda_device, dtype):
 
 def test_flash_attention_f32_kernel_info(cuda_device):
     """The f32 kernel compiles without spills at every head dim and query
-    tile built for it, and fits one block an SM."""
-    for d in HEAD_DIMS:
+    tile built for it, and fits one block an SM; so do its slab kernels
+    (272 on 160, 384 on 192, 512 on 256, 896 on 128)."""
+    for d in HEAD_DIMS + (272, 384, 512, 896):
         for tile in f32_query_tiles(d):
             info = kernel_info(d, torch.float32, tile)
             assert info["query_tile"] == tile and info["spill_bytes"] == 0
-            assert info["kernel_width"] == d
+            assert info["kernel_width"] == kernel_width(d)
             assert 0 < info["registers"] <= 255
             assert info["smem_bytes"] <= 232448
 
 
 def test_flash_attention_bf16_kernel_info(cuda_device):
-    """The bf16 kernel compiles without spills and fits one block an SM."""
-    for d in HEAD_DIMS:
+    """The bf16 kernel compiles without spills and fits one block an SM;
+    so do its slab kernels."""
+    for d in HEAD_DIMS + (272, 384, 512, 896):
         info = kernel_info(d)
-        assert info["spill_bytes"] == 0 and info["kernel_width"] == d
+        assert info["spill_bytes"] == 0
+        assert info["kernel_width"] == kernel_width(d)
         assert 0 < info["registers"] <= 255
         assert info["smem_bytes"] <= 232448
 

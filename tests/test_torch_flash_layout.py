@@ -17,13 +17,14 @@ import torch
 
 from repro_torch.kernels import KERNELS, ref
 from repro_torch.kernels.flash_attention import (F32_QUERY_TILES, HEAD_DIMS,
-                                                 MAX_HEAD_DIM,
+                                                 MAX_KERNEL_WIDTH,
+                                                 SLAB_WIDTHS,
                                                  f32_query_tile,
                                                  f32_query_tiles,
                                                  f32_vector_loads,
                                                  flash_attention,
-                                                 kernel_operand, kernel_width,
-                                                 tma_ready)
+                                                 kernel_operand, kernel_slabs,
+                                                 kernel_width, tma_ready)
 
 #: the H100's streaming multiprocessors
 H100_SMS = 132
@@ -176,10 +177,16 @@ def test_cpu_tensors_take_the_plain_version():
 
 @pytest.mark.parametrize("d", [272, 320, 512])
 def test_head_dim_outside_the_kernels_raises(d):
-    assert d > MAX_HEAD_DIM
-    q, kv = _meta(1, 4, 64, d), _meta(1, 2, 64, d)
-    with pytest.raises(ValueError, match="head dims"):
-        flash_attention(q, kv, kv)
+    """A head dim past the widest kernel no longer raises: it runs in
+    slabs, and the kernel path on ``meta`` tensors gives q's shape, the
+    first d columns of rows n w wide."""
+    assert d > MAX_KERNEL_WIDTH
+    n, w = kernel_slabs(d)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kv = _meta(1, 4, 64, d, dtype=dtype), _meta(1, 2, 64, d, dtype=dtype)
+        out = flash_attention(q, kv, kv)
+        assert out.is_meta and out.shape == q.shape and out.dtype == dtype
+        assert out.stride(2) == n * w and n * w >= d
 
 
 @pytest.mark.parametrize("d,width", [
@@ -188,19 +195,39 @@ def test_head_dim_outside_the_kernels_raises(d):
     (160, 160), (161, 192), (192, 192), (193, 256), (250, 256), (256, 256)])
 def test_kernel_width_is_the_next_width_up(d, width):
     assert width in HEAD_DIMS and kernel_width(d) == width
+    assert kernel_slabs(d) == (1, width)
+
+
+@pytest.mark.parametrize("d,slabs", [
+    (257, (2, 160)), (300, (2, 160)), (320, (2, 160)), (384, (2, 192)),
+    (385, (3, 160)), (448, (3, 160)), (512, (2, 256)), (640, (4, 160)),
+    (896, (7, 128)), (1024, (4, 256)), (4096, (16, 256))])
+def test_head_dims_above_256_run_in_slabs(d, slabs):
+    """Above the widest kernel a head dim runs in n slabs of one width w:
+    the fewest columns n w >= d, a tie to the fewer slabs (640 on 4 x 160,
+    not 5 x 128)."""
+    assert kernel_slabs(d) == slabs and kernel_width(d) == slabs[1]
 
 
 def test_every_head_dim_up_to_256_has_a_width_and_no_other():
-    """Every head dim from 1 to 256 runs on the smallest width not below
-    it: under 2x wide above 16, under 1.5x above 64; 0 and 257 raise."""
-    for d in range(1, MAX_HEAD_DIM + 1):
-        w = kernel_width(d)
-        assert w >= d and not [x for x in HEAD_DIMS if d <= x < w]
+    """The slab plan of every head dim from 1 to 1024: up to 256 one slab
+    of the smallest width not below it (under 2x wide above 16, under
+    1.5x above 64), as before slabs; above 256 n slabs of a width of
+    SLAB_WIDTHS whose n w columns cover it, none fewer, at most 1.25x wide
+    (to 4096); 0 raises."""
+    for d in range(1, MAX_KERNEL_WIDTH + 1):
+        n, w = kernel_slabs(d)
+        assert n == 1 and w >= d and not [x for x in HEAD_DIMS if d <= x < w]
         assert d <= 16 or w < 2 * d
         assert d <= 64 or w < 1.5 * d
-    for d in (0, MAX_HEAD_DIM + 1):
-        with pytest.raises(ValueError, match="head dims 1 to 256"):
-            kernel_width(d)
+    for d in range(MAX_KERNEL_WIDTH + 1, 4097):
+        n, w = kernel_slabs(d)
+        assert w in SLAB_WIDTHS and w in HEAD_DIMS and (n - 1) * w < d <= n * w
+        assert n * w == min(-(-d // x) * x for x in SLAB_WIDTHS)
+        assert n * w <= 1.25 * d, d
+    for d in (0, -1):
+        with pytest.raises(ValueError, match="head dims >= 1"):
+            kernel_slabs(d)
 
 
 @pytest.mark.parametrize("d", [1, 20, 33, 100, 250, 255])
@@ -241,22 +268,25 @@ def test_f32_head_dims_off_4_floats_take_4_byte_copies():
 
 @pytest.mark.parametrize("d,tiles", [(32, F32_QUERY_TILES),
                                      (100, F32_QUERY_TILES),
-                                     (129, (64,)), (160, (64,))])
+                                     (129, (64,)), (160, (64,)),
+                                     (320, (64,)), (896, (64,))])
 def test_f32_query_tiles_follow_the_width(d, tiles):
     """The f32 query tiles are those of the width a head dim runs on: 128
     rows up to width 128, 64 rows above (160's O would not fit in
-    registers)."""
+    registers) and in slabs, also of width 128 (896 on 7 x 128)."""
     assert f32_query_tiles(d) == tiles
     assert f32_query_tile(1, 132, 128, H100_SMS, d) == tiles[0]
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS + (1, 33, 72, 80, 100, 250))
+@pytest.mark.parametrize("d", HEAD_DIMS + (1, 33, 72, 80, 100, 250, 257,
+                                          320, 500, 512, 1024))
 def test_kernel_path_evaluates_on_meta_tensors(d):
-    """The output is the first d columns of rows of the kernel's width:
-    contiguous at the built widths, a view of padded rows elsewhere."""
+    """The output is the first d columns of rows of the kernel's width, n
+    slabs of it above 256: contiguous where they are d wide, a view of
+    padded rows elsewhere."""
     q, kv = _bshd(2, 100, 8, d), _bshd(2, 70, 2, d)
     out = flash_attention(q, kv, kv, causal=True, window=16)
+    n, w = kernel_slabs(d)
     assert out.is_meta and out.shape == q.shape
-    assert out.stride() == (8 * 100 * kernel_width(d), 100 * kernel_width(d),
-                            kernel_width(d), 1)
-    assert out.is_contiguous() == (d in HEAD_DIMS)
+    assert out.stride() == (8 * 100 * n * w, 100 * n * w, n * w, 1)
+    assert out.is_contiguous() == (n * w == d)

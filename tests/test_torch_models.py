@@ -93,6 +93,19 @@ def test_flash_attention_matches_pallas_at_the_new_head_dims(d):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("d", [272, 320, 512])
+def test_flash_attention_matches_pallas_above_256(d):
+    """Head dims past the widest kernel, which the card runs in slabs of O
+    (272 and 320 on 2 x 160, 512 on 2 x 256): GQA, causal, a window
+    across tiles, against the Pallas kernel, whose blocks take the whole
+    head dim."""
+    q, k, v = _qkv(d, 1, 4, 2, 128, 192, d)
+    want = _pallas(q, k, v, causal=True, window=100)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True, window=100)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("window", [32, 100, 256])
 def test_flash_attention_local_window(window):
     q, k, v = _qkv(window, 1, 2, 2, 128, 256, 64)
