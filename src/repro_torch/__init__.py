@@ -16,6 +16,8 @@ package imports neither JAX nor ``repro``.
   its serving engine and the serve mesh.
 * :mod:`repro_torch.net` — nodes, remote actor handles and the
   spill-based wire format across processes.
+* :mod:`repro_torch.trace` — spans and counters at the layer
+  boundaries, on the profiler's clock.
 
 Entry points run on the CUDA device unless the caller asks for the CPU.
 """

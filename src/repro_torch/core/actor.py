@@ -28,6 +28,7 @@ from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Any, Callable, Optional, Tuple
 
+from .. import trace
 from ..analysis.runtime import make_lock
 from .errors import ActorFailed, DownMessage, ExitMessage, MailboxClosed
 
@@ -62,13 +63,17 @@ def _safe_set_exception(fut: Optional[Future], exc: BaseException) -> None:
 
 
 class Message:
-    __slots__ = ("payload", "reply_to", "sender")
+    __slots__ = ("payload", "reply_to", "sender", "stamp")
 
     def __init__(self, payload: Tuple[Any, ...], reply_to: Optional[Future] = None,
                  sender: Optional["ActorRef"] = None):
         self.payload = payload
         self.reply_to = reply_to
         self.sender = sender
+        #: while recording, the sender's ``trace.stamp()`` at enqueue: the
+        #: receiver's ``actor.mailbox`` and ``actor.receive`` spans carry
+        #: its request id
+        self.stamp = None
 
 
 class ActorRef:
@@ -224,7 +229,6 @@ class ActorSystem:
         self._registry_lock = make_lock("ActorSystem")
         self._shutdown = False
         self._manager = None
-        self.stats = {"spawned": 0, "messages": 0, "inline_calls": 0}
 
     # -- spawning ------------------------------------------------------
     def spawn(self, behavior, *args, lazy_init: bool = True, **kwargs) -> ActorRef:
@@ -250,7 +254,6 @@ class ActorSystem:
             aid = next(self._ids)
             state = _ActorState(actor)
             self._actors[aid] = state
-            self.stats["spawned"] += 1
         ref = ActorRef(aid, self)
         actor.ref = ref
         actor.system = self
@@ -355,7 +358,9 @@ class ActorSystem:
             if not st.started:
                 actor.on_start()
                 st.started = True
-            result = actor.receive(*payload)
+            with (trace.span("actor.receive", actor=actor_id, inline=1)
+                  if trace.enabled() else trace.NOOP):
+                result = actor.receive(*payload)
         except Exception as exc:
             # terminate *before* releasing the guard: messages that arrived
             # mid-call are failed by the termination sweep rather than
@@ -363,7 +368,6 @@ class ActorSystem:
             self._terminate(actor_id, exc)
             self._release_inline(st, actor_id)
             raise
-        self.stats["inline_calls"] += 1
         self._release_inline(st, actor_id)
         return True, result
 
@@ -382,6 +386,7 @@ class ActorSystem:
 
     # -- scheduling internals ----------------------------------------------
     def _enqueue(self, actor_id: int, msg: Message) -> None:
+        msg.stamp = trace.stamp()
         st = self._actors.get(actor_id)
         delivered = False
         if st is not None:
@@ -393,7 +398,6 @@ class ActorSystem:
                 if st.alive:
                     st.mailbox.append(msg)
                     delivered = True
-                    self.stats["messages"] += 1
                     if st.scheduled or st.inline:
                         # already claimed: a running drain will see the new
                         # message, and an inline call reschedules the drain
@@ -430,6 +434,17 @@ class ActorSystem:
             self._process(st, actor_id, msg)
 
     def _process(self, st: _ActorState, actor_id: int, msg: Message) -> None:
+        if msg.stamp is None:                     # sent while not recording
+            self._receive(st, actor_id, msg)
+            return
+        trace.waited(msg.stamp, "actor.mailbox", actor=actor_id)
+        # the reply is delivered inside the span: the callbacks it runs (a
+        # graph's next hop) send under the request's id
+        with trace.span_from(msg.stamp, "actor.receive", actor=actor_id,
+                             inline=0):
+            self._receive(st, actor_id, msg)
+
+    def _receive(self, st: _ActorState, actor_id: int, msg: Message) -> None:
         actor = st.actor
         try:
             if not st.started:

@@ -57,6 +57,7 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from ..analysis.runtime import make_lock, make_rlock
 from .actor import _UNSET, Actor, ActorRef, ActorSystem
 from .api import KernelDecl, _bound_fn
@@ -1058,12 +1059,14 @@ class GraphPlan:
     actor's single reply is attributed to the tail's output ports),
     ``inline_ok`` (per-node verdict of the build-time inline-dispatch
     analysis), and ``counters`` (``inline`` vs ``mailbox`` dispatch
-    counts, served by :attr:`GraphRef.dispatch_stats`)."""
+    counts, served by :attr:`GraphRef.dispatch_stats` and, summed over the
+    live graphs, by ``trace.counters()`` as ``graph.inline`` and
+    ``graph.mailbox``)."""
 
     __slots__ = ("name", "nodes", "order", "sources", "outputs", "outset",
                  "consumers", "refs", "placements", "chain_refs",
                  "fused_regions", "member_of", "produce_as", "inline_ok",
-                 "counters", "_counters_lock", "decisions")
+                 "counters", "_counters_lock", "decisions", "__weakref__")
 
     def __init__(self, graph: Graph, topo, consumers, refs, placements, *,
                  regions=(), member_of=None, tail_of=None, inline_ok=None):
@@ -1085,6 +1088,12 @@ class GraphPlan:
         self.counters = {"inline": 0, "mailbox": 0}
         self._counters_lock = make_lock("GraphCounters")
         self.chain_refs = self._linear_chain()
+        trace.reads(self, GraphPlan._dispatch_counts)
+
+    def _dispatch_counts(self) -> Dict[str, int]:
+        """The dispatch counters as ``trace.counters()`` names them."""
+        with self._counters_lock:
+            return {f"graph.{k}": n for k, n in self.counters.items()}
 
     def count_dispatch(self, kind: str) -> None:
         with self._counters_lock:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from .. import trace
 from ..analysis.runtime import make_rlock
 from .errors import AccessViolation
 from .signature import dtype_name, to_torch_dtype
@@ -127,6 +128,15 @@ class RefRegistry:
         self.readbacks = 0
         self.spills = 0
         self.unspills = 0
+        trace.reads(self, RefRegistry._traffic)
+
+    def _traffic(self) -> Dict[str, int]:
+        """The traffic counters as ``trace.counters()`` names them."""
+        with self._lock:
+            return {"memref.transfers": self.transfers,
+                    "memref.readbacks": self.readbacks,
+                    "memref.spills": self.spills,
+                    "memref.unspills": self.unspills}
 
     # -- ref lifecycle (called by DeviceRef) ---------------------------------
     def on_create(self, device, nbytes: int, resident: bool) -> None:

@@ -30,6 +30,7 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 
+from .. import trace
 from ..core import ActorRef, ActorSystem
 from ..core.api import Pipeline
 from ..core.memref import DeviceRef, as_device_array
@@ -49,24 +50,29 @@ def _stage_fn(model, params, layers, first: bool, last: bool):
 
     The first stage embeds tokens; the last applies the final norm and LM
     head. Middle stages are residual-stream transforms, so only the
-    [B, S, D] activation crosses actor boundaries."""
+    [B, S, D] activation crosses actor boundaries. The stage runs in a
+    ``stage`` span, its input's transfer, embedding and positions in
+    ``stage.embed``, the head in ``stage.head``."""
     cfg = model.cfg
 
     def stage(x):
-        x = as_device_array(x, device=model.device)
-        with torch.no_grad():
-            if first:
-                x = embed_inputs(params, cfg, x)
-            b, s = x.shape[0], x.shape[1]
-            positions = default_positions(
-                cfg, torch.zeros((), dtype=torch.int64, device=x.device),
-                b, s)
+        with trace.span("stage"), torch.no_grad():
+            with trace.span("stage.embed"):
+                x = as_device_array(x, device=model.device)
+                if first:
+                    x = embed_inputs(params, cfg, x)
+                b, s = x.shape[0], x.shape[1]
+                positions = default_positions(
+                    cfg, torch.zeros((), dtype=torch.int64, device=x.device),
+                    b, s)
             x, _ = apply_layers(layers, cfg, x, positions, model.attn_impl)
             if not last:
                 return DeviceRef(x)
-            x = apply_norm(params["final_norm"], x, cfg.norm)
-            head = params["embed"].T if cfg.tie_embeddings else params["head"]
-            return x @ head.to(x.dtype)
+            with trace.span("stage.head"):
+                x = apply_norm(params["final_norm"], x, cfg.norm)
+                head = (params["embed"].T if cfg.tie_embeddings
+                        else params["head"])
+                return x @ head.to(x.dtype)
 
     return stage
 
@@ -155,18 +161,21 @@ class PipelineRunner:
         """
         if emit not in ("value", "ref", "spill"):
             raise ValueError(f"emit must be value|ref|spill, got {emit!r}")
-        if not self._sem.acquire(timeout=timeout):
-            raise TimeoutError(
-                f"pipeline in-flight window ({self.depth}) still full "
-                f"after {timeout}s")
-        payload = mb if isinstance(mb, tuple) else (mb,)
-        try:
-            fut = self._chain.request(*payload)
-        except BaseException:
-            # the window is instance state: a synchronous request failure
-            # must hand its slot back or the runner shrinks
-            self._sem.release()
-            raise
+        with trace.request("pipeline.submit"):
+            with trace.span("pipeline.admit"):
+                admitted = self._sem.acquire(timeout=timeout)
+            if not admitted:
+                raise TimeoutError(
+                    f"pipeline in-flight window ({self.depth}) still full "
+                    f"after {timeout}s")
+            payload = mb if isinstance(mb, tuple) else (mb,)
+            try:
+                fut = self._chain.request(*payload)
+            except BaseException:
+                # the window is instance state: a synchronous request
+                # failure must hand its slot back or the runner shrinks
+                self._sem.release()
+                raise
         out: Future = Future()
 
         def _done(f):

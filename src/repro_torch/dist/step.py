@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from .. import trace
 from ..core.memref import as_device_array
 from ..models.layers import plain_tree
 from ..optim import adamw
@@ -63,8 +64,11 @@ def _value_and_grad(model, params, batch
     leaves, spec = pytree.tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
-        loss, parts = model.loss(pytree.tree_unflatten(leaves, spec), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with trace.span("train.forward"):
+            loss, parts = model.loss(pytree.tree_unflatten(leaves, spec),
+                                     batch)
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, leaves)]
     parts = {k: v.detach() for k, v in parts.items()}
@@ -125,19 +129,20 @@ def build_train_step(model, ocfg, *, grad_accum: int = 1,
     plain tensor is left as it is."""
 
     def train_step(state, batch):
-        params, opt, step = state["params"], state["opt"], state["step"]
-        loss, parts, grads = loss_and_grads(
-            model, params, batch, grad_accum=grad_accum,
-            accum_dtype=accum_dtype, presplit=presplit)
-        if grad_shardings is not None:
-            grads = pytree.tree_map(_pin, grads, grad_shardings)
-        lr_scale = lr_schedule(step) if lr_schedule is not None else 1.0
-        with torch.no_grad():
-            new_params, new_opt, opt_metrics = adamw.update(
-                grads, opt, params, ocfg, lr_scale)
-        metrics = {"loss": loss, **parts, **opt_metrics}
-        return {"params": new_params, "opt": new_opt,
-                "step": step + 1}, metrics
+        with trace.request("train.step"):
+            params, opt, step = state["params"], state["opt"], state["step"]
+            loss, parts, grads = loss_and_grads(
+                model, params, batch, grad_accum=grad_accum,
+                accum_dtype=accum_dtype, presplit=presplit)
+            if grad_shardings is not None:
+                grads = pytree.tree_map(_pin, grads, grad_shardings)
+            lr_scale = lr_schedule(step) if lr_schedule is not None else 1.0
+            with torch.no_grad():
+                new_params, new_opt, opt_metrics = adamw.update(
+                    grads, opt, params, ocfg, lr_scale)
+            metrics = {"loss": loss, **parts, **opt_metrics}
+            return {"params": new_params, "opt": new_opt,
+                    "step": step + 1}, metrics
 
     return train_step
 

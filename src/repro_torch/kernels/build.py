@@ -27,6 +27,8 @@ import time
 from pathlib import Path
 from typing import Counter, Dict, Iterable, Optional, Sequence, Tuple
 
+from .. import trace
+
 __all__ = ["CudaKernel", "build_all", "device_sm_count", "BUILD_DIR",
            "CSRC_DIR"]
 
@@ -73,7 +75,8 @@ class CudaKernel:
     every kernel launch, and ``function_launches`` counts the same launches
     by exported function (a library may export several); a run resets both
     (:meth:`reset_launches`) and reads them afterwards to show that its
-    path went through the kernel.
+    path went through the kernel. ``trace.counters()`` reads them too, as
+    ``cuda.launches`` (summed over the kernels) and ``cuda.<function>``.
     """
 
     def __init__(self, name: str, source: str,
@@ -86,6 +89,13 @@ class CudaKernel:
         self.function_launches: Counter = collections.Counter()
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+        trace.reads(self, CudaKernel._counts)
+
+    def _counts(self) -> Dict[str, int]:
+        with self._lock:
+            return {"cuda.launches": self.launches,
+                    **{f"cuda.{fn}": n
+                       for fn, n in self.function_launches.items()}}
 
     # -- building ----------------------------------------------------------
     @property

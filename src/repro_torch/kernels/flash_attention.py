@@ -41,6 +41,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import trace
 from . import ref
 from .build import CudaKernel, device_sm_count
 
@@ -229,30 +230,31 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    b, h, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    slabs, width = kernel_slabs(d)
-    q, k, v = (kernel_operand(t) for t in (q, k, v))
-    out = torch.empty((b, h, sq, slabs * width), dtype=q.dtype,
-                      device=q.device)
-    if not out.numel():
+    with trace.span("kernel.flash_attention"):
+        b, h, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        slabs, width = kernel_slabs(d)
+        q, k, v = (kernel_operand(t) for t in (q, k, v))
+        out = torch.empty((b, h, sq, slabs * width), dtype=q.dtype,
+                          device=q.device)
+        if not out.numel():
+            return out[..., :d]
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _strides(q), _strides(k), _strides(v), b, h, hkv, sq, skv, d,
+                width) + ((slabs,) if slabs > 1 else ()) + (
+                    int(causal), window, scale)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        kind = "_slabs" if slabs > 1 else ""
+        if q.dtype == torch.float32:
+            vec = sum(int(f32_vector_loads(t)) << i
+                      for i, t in enumerate((q, k, v)))
+            if slabs == 1:
+                args += (f32_query_tile(
+                    b, h, sq, device_sm_count(q.device.index), d),)
+            KERNEL.launch(f"flash_attention_f32{kind}", *args, vec, stream)
+        else:
+            KERNEL.launch(f"flash_attention_bf16{kind}", *args, stream)
         return out[..., :d]
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _strides(q), _strides(k), _strides(v), b, h, hkv, sq, skv, d,
-            width) + ((slabs,) if slabs > 1 else ()) + (int(causal), window,
-                                                         scale)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    kind = "_slabs" if slabs > 1 else ""
-    if q.dtype == torch.float32:
-        vec = sum(int(f32_vector_loads(t)) << i
-                  for i, t in enumerate((q, k, v)))
-        if slabs == 1:
-            args += (f32_query_tile(b, h, sq, device_sm_count(q.device.index),
-                                    d),)
-        KERNEL.launch(f"flash_attention_f32{kind}", *args, vec, stream)
-    else:
-        KERNEL.launch(f"flash_attention_bf16{kind}", *args, stream)
-    return out[..., :d]
 
 
 @_flash_attention_cuda.register_fake

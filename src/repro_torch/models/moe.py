@@ -7,6 +7,13 @@ groups of at most ``group_size``, each expert takes at most C = ⌈k·g/E·cf⌉
 tokens of a group (earlier tokens first, then lower choices), and a
 dropped token passes through the residual. The auxiliary load-balancing
 loss is Switch's (eq. 4). The experts' weights are stacked ``[E, d, f]``.
+
+While recording (:mod:`repro_torch.trace`) a layer's routing, dispatch,
+experts and combine run in ``moe.*`` spans, and it counts ``moe.slots``
+(the capacity slots it allocates, E·C a group) and ``moe.assigned`` (its
+top-k assignments) on the host, and ``moe.filled`` (the assignments
+kept) on the device, one add a layer; ``trace.counters()`` gives
+``moe.dropped`` (those past capacity) as their difference.
 """
 from __future__ import annotations
 
@@ -16,10 +23,13 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..configs.base import ModelConfig
 from .layers import normal
 
 __all__ = ["init_moe", "route", "apply_moe"]
+
+trace.difference("moe.dropped", "moe.assigned", "moe.filled")
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
@@ -61,25 +71,31 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
     x = x.reshape(b_in * (s_in // g), g, d)
     b, s, _ = x.shape
 
-    probs, topv, topi = route(p, cfg, x)                       # [B,S,k]
+    with trace.span("moe.route"):
+        probs, topv, topi = route(p, cfg, x)                   # [B,S,k]
     capacity = max(int(math.ceil(k * s / e * cfg.moe.capacity_factor)), 1)
 
-    onehot = F.one_hot(topi, e).float()                        # [B,S,k,E]
-    # position of each (token, choice) within its expert's queue (per
-    # group); priority: earlier tokens first, then lower k
-    flat = onehot.reshape(b, s * k, e)
-    pos = (torch.cumsum(flat, dim=1) - flat).reshape(b, s, k, e)  # exclusive
-    pos_idx = (pos * onehot).sum(-1).to(torch.int64)              # [B,S,k]
-    keep = ((pos < capacity) & (onehot > 0)).any(-1)              # [B,S,k]
+    with trace.span("moe.dispatch"):
+        onehot = F.one_hot(topi, e).float()                    # [B,S,k,E]
+        # position of each (token, choice) within its expert's queue (per
+        # group); priority: earlier tokens first, then lower k
+        flat = onehot.reshape(b, s * k, e)
+        pos = (torch.cumsum(flat, dim=1) - flat).reshape(b, s, k, e)
+        pos_idx = (pos * onehot).sum(-1).to(torch.int64)          # [B,S,k]
+        keep = ((pos < capacity) & (onehot > 0)).any(-1)          # [B,S,k]
 
-    # one-hot over the capacity slots; a position past the last slot is
-    # all zeros, as jax.nn.one_hot gives it
-    cap_onehot = (pos_idx[..., None] == torch.arange(
-        capacity, device=x.device)).float()                       # [B,S,k,C]
-    disp = torch.einsum("bske,bskc->bsec", onehot * keep[..., None],
-                        cap_onehot)
-    comb = torch.einsum("bske,bskc->bsec",
-                        onehot * (topv * keep)[..., None], cap_onehot)
+        # one-hot over the capacity slots; a position past the last slot
+        # is all zeros, as jax.nn.one_hot gives it
+        cap_onehot = (pos_idx[..., None] == torch.arange(
+            capacity, device=x.device)).float()                   # [B,S,k,C]
+        disp = torch.einsum("bske,bskc->bsec", onehot * keep[..., None],
+                            cap_onehot)
+        comb = torch.einsum("bske,bskc->bsec",
+                            onehot * (topv * keep)[..., None], cap_onehot)
+        if trace.enabled():
+            trace.count("moe.slots", b * e * capacity)
+            trace.count("moe.assigned", keep.numel())
+            trace.count("moe.filled", keep.sum())
 
     # Switch aux loss: E · Σ_e fraction_tokens(e) · mean_prob(e). It comes
     # before the experts: under remat the backward recomputes the layer up
@@ -90,18 +106,20 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
     aux = e * (frac * mean_prob).sum() * cfg.moe.aux_loss_weight
 
     cd = x.dtype
-    expert_in = torch.einsum("bsec,bsd->becd", disp.to(cd), x)      # [B,E,C,D]
-    if cfg.mlp in ("swiglu", "geglu"):
-        gate = torch.einsum("becd,edf->becf", expert_in, p["w_gate"])
-        gate = F.silu(gate) if cfg.mlp == "swiglu" else \
-            F.gelu(gate, approximate="tanh")
-        h = gate * torch.einsum("becd,edf->becf", expert_in, p["w_up"])
-    else:
-        h = F.gelu(torch.einsum("becd,edf->becf", expert_in, p["w_up"]),
-                   approximate="tanh")
-    expert_out = torch.einsum("becf,efd->becd", dist_api.match_layout(h),
-                              p["w_out"])                           # [B,E,C,D]
-    y = torch.einsum("bsec,becd->bsd", comb.to(cd), expert_out)
+    with trace.span("moe.experts"):
+        expert_in = torch.einsum("bsec,bsd->becd", disp.to(cd), x)  # [B,E,C,D]
+        if cfg.mlp in ("swiglu", "geglu"):
+            gate = torch.einsum("becd,edf->becf", expert_in, p["w_gate"])
+            gate = F.silu(gate) if cfg.mlp == "swiglu" else \
+                F.gelu(gate, approximate="tanh")
+            h = gate * torch.einsum("becd,edf->becf", expert_in, p["w_up"])
+        else:
+            h = F.gelu(torch.einsum("becd,edf->becf", expert_in,
+                                    p["w_up"]), approximate="tanh")
+        expert_out = torch.einsum("becf,efd->becd", dist_api.match_layout(h),
+                                  p["w_out"])                       # [B,E,C,D]
+    with trace.span("moe.combine"):
+        y = torch.einsum("bsec,becd->bsd", comb.to(cd), expert_out)
 
     # pinned per routing group: the combine's layout may split a group
     return dist_api.stream(y).reshape(b_in, s_in, d), aux.float()

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import trace
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -72,13 +73,42 @@ def apply_remat(body: Callable, remat: str) -> Callable:
     if remat == "none":
         return body
     if remat == "full":
-        return functools.partial(checkpoint, body, use_reentrant=False)
-    if remat == "dots":
-        return functools.partial(
-            checkpoint, body, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _save_dots))
-    raise ValueError(f"remat={remat!r}; the port has {REMAT_POLICIES}")
+        options = {}
+    elif remat == "dots":
+        options = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    else:
+        raise ValueError(f"remat={remat!r}; the port has {REMAT_POLICIES}")
+
+    def remat_body(*args):
+        return checkpoint(_spanned_recompute(body), *args,
+                          use_reentrant=False, **options)
+
+    return remat_body
+
+
+def _spanned_recompute(body: Callable) -> Callable:
+    """``body`` as ``checkpoint`` calls it: first in the forward, inside
+    the caller's open ``layer`` span, then again in the backward, where
+    the recompute gets a ``layer`` span of its own (``recompute`` 1) under
+    the span then open on the forward's thread (``train.backward``),
+    though the autograd engine may run it on another thread."""
+    outer = trace.current()
+    if outer is None or outer.name != "layer":
+        return body
+    forward_thread = trace.here()
+    attrs = dict(outer.attrs, recompute=1)
+    calls = 0
+
+    def run(*args):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return body(*args)
+        with trace.span_within(forward_thread, "layer", **attrs):
+            return body(*args)
+
+    return run
 
 
 def layer_groups(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -212,13 +242,17 @@ def apply_layers(layers, cfg: ModelConfig, x: torch.Tensor, positions,
     execution order, over the residual stream ``x`` → (x, the MoE layers'
     aux loss summed, f32 0-d). The stream is pinned at each unit's start
     (``dist.api.stream``, the identity on a plain tensor), where
-    the JAX package's scan body pins it."""
+    the JAX package's scan body pins it. Each layer runs in a ``layer``
+    span (``index`` in ``layers``, ``kind``, ``recompute`` 0)."""
     from ..dist import api as dist_api
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block, kind, start in layers:
+    on = trace.enabled()
+    for index, (block, kind, start) in enumerate(layers):
         if start:
             x = dist_api.stream(x)
-        x, a = block_fn(block, cfg, kind, x, positions, attn_impl)
+        with (trace.span("layer", index=index, kind=kind, recompute=0)
+              if on else trace.NOOP):
+            x, a = block_fn(block, cfg, kind, x, positions, attn_impl)
         if a is not None:
             aux = aux + a
     return x, aux
