@@ -25,13 +25,20 @@ port's main path through the entry points a user calls:
   all-card frame;
 * ``Graph.map_over`` of a one-input matmul kernel over an 8192x4096 f32
   ``DeviceRef``, 4 chunks on 2 replicas, with no host transfer;
+* the AdamW kernel (``kernels/adamw.py``) over qwen3-1.7b's full
+  parameter tree (310 leaves, 1.72 B parameters, bf16 with f32 state):
+  its leaf sums of squares within 1e-6 of ``torch.sum``, its update equal
+  to the loop's bit for bit at the same scalars, three launches an
+  ``adamw.update``, timed beside its bound, the loop and
+  ``torch._fused_adamw_``;
 * training at qwen3-1.7b's widths (``repro_torch.launch.train``,
   ``dist.step``, ``dist.fault``): a 2-layer f32 train step on the card
   against the same step on the CPU, and ``grad_accum`` 4 against the full
   batch; 12 steps of ``launch.train.run --full`` (all 28 layers, bf16
   parameters, f32 AdamW state, remat "full") at 8 x 512 tokens, then 10
   steps on one batch that must lower the loss, one of them profiled for
-  the device time against the step's bound; ``RecoverableTrainer`` (a
+  the device time against the step's bound (every step one launch of
+  each AdamW entry); ``RecoverableTrainer`` (a
   fault at step 3, the final state equal leaf for leaf to an unfaulted
   run's) and ``ElasticDPDriver`` (4 workers, one dying) in a child
   process under deterministic algorithms, at 1 layer with the
@@ -290,6 +297,17 @@ TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5
 #: lower the loss
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_REPEAT_STEPS = 8, 512, 12, 10
 TRAIN_FIRST_LOSS_TOL = 0.15
+#: the AdamW kernel at qwen3-1.7b's full parameter tree (bf16 parameters
+#: and gradients, f32 state): its update equals the loop's to the bit for
+#: the same scalars; its leaf sums of squares are torch.sum's within
+#: ADAMW_SUM_RTOL (f64 sums against f32 ones, in another order)
+ADAMW_SUM_RTOL = 1e-6
+#: bytes a parameter: the update reads g, m, v, p (2 + 4 + 4 + 2) and
+#: writes p, m, v (2 + 4 + 4); the norm reads g (2); 24 for the call
+ADAMW_UPDATE_BYTES, ADAMW_NORM_BYTES = 22, 2
+#: the AdamW kernel's launches in one train step, whatever the leaves
+ADAMW_A_STEP = {"adamw_norm_chunks": 1, "adamw_norm_leaves": 1,
+                "adamw_update": 1}
 #: recovery and elastic DP, in a spawned child under deterministic
 #: algorithms: qwen3-1.7b widths at 1 layer with the vocabulary cut to
 #: RECOVERY_VOCAB (at 151936 a checkpoint of params, m and v writes about
@@ -581,6 +599,13 @@ def words_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Bit-exact equality of two 32-bit word tensors (any 32-bit dtype)."""
     return a.shape == b.shape and torch.equal(a.view(torch.int32),
                                               b.view(torch.int32))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-exact equality of two tensors of one 2- or 4-byte dtype."""
+    word = torch.int16 if a.element_size() == 2 else torch.int32
+    return (a.dtype == b.dtype and a.shape == b.shape and
+            torch.equal(a.view(word), b.view(word)))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1270,8 +1295,8 @@ def train_parity_phase(run_phase, dev) -> dict:
                         seed=0).batch_at(0)
     name = (f"train step qwen3-1.7b widths {TRAIN_PARITY_LAYERS} layers f32 "
             f"{TRAIN_PARITY_B}x{TRAIN_PARITY_S}")
-    new, m = run_phase(name, [], lambda: build_train_step(card, ocfg)(
-        state, batch))
+    new, m = run_phase(name, ["adamw"], lambda: build_train_step(card, ocfg)(
+        state, batch), ADAMW_A_STEP)
     check(all(t.device == dev for t in pytree.tree_leaves(new)),
           f"{name}: the new state left the card")
     del new
@@ -1351,7 +1376,8 @@ def train_full_phase(run_phase, dev) -> dict:
     name = (f"train qwen3-1.7b --full {TRAIN_STEPS} steps of "
             f"{TRAIN_B}x{TRAIN_S}")
     torch.cuda.reset_peak_memory_stats()
-    rows = run_phase(name, [], lambda: launch_train.run(args, log=log))
+    rows = run_phase(name, ["adamw"], lambda: launch_train.run(args, log=log),
+                     {fn: TRAIN_STEPS for fn in ADAMW_A_STEP})
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(len(rows) == TRAIN_STEPS and
           all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
@@ -1381,7 +1407,8 @@ def train_full_phase(run_phase, dev) -> dict:
             losses.append(float(m["loss"]))
             repeat_ms.append((time.perf_counter() - t0) * 1e3)
     run_phase(f"train qwen3-1.7b --full {TRAIN_REPEAT_STEPS} steps on one "
-              "batch", [], repeat)
+              "batch", ["adamw"], repeat,
+              {fn: TRAIN_REPEAT_STEPS for fn in ADAMW_A_STEP})
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"{name}: {TRAIN_REPEAT_STEPS} steps on one batch did not lower "
           f"the loss: {losses}")
@@ -1972,7 +1999,8 @@ def ssm_phase(run_phase, dev) -> dict:
     name = (f"ssm train mamba2-130m --full {SSM_TRAIN_STEPS} steps of "
             f"{SSM_TRAIN_B}x{SSM_TRAIN_S}")
     torch.cuda.reset_peak_memory_stats()
-    rows = run_phase(name, [], lambda: launch_train.run(args, log=log))
+    rows = run_phase(name, ["adamw"], lambda: launch_train.run(args, log=log),
+                     {fn: SSM_TRAIN_STEPS for fn in ADAMW_A_STEP})
     ln_v = float(np.log(cfg.vocab_size))
     losses = [r["loss"] for r in rows]
     check(len(rows) == SSM_TRAIN_STEPS and all(
@@ -2343,6 +2371,44 @@ def wall_ms(fn, reps: int) -> list:
     return sorted(walls)
 
 
+def optimizer_bytes(state, plan, where) -> float:
+    """The bytes the roofline counter counts in the train step's AdamW
+    update alone: on ``state``'s own tensors on the card (the kernel), or
+    on ``"meta"`` tensors of their shapes (the loop, as on the dry run's
+    DTensors), with zero gradients of the step's dtype (the accumulator's
+    under ``grad_accum``)."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.roofline.counter import count
+    gdt = getattr(torch, plan.accum_dtype) if plan.grad_accum > 1 else None
+    params, opt = state["params"], state["opt"]
+    if where == "meta":
+        params, opt = (pytree.tree_map(
+            lambda t: torch.empty_like(t, device="meta"), x)
+            for x in (params, opt))
+    grads = pytree.tree_map(
+        lambda t: torch.zeros_like(t, dtype=gdt or t.dtype), params)
+    ocfg = AdamWConfig(state_dtype=plan.opt_dtype)
+    _, st = count(lambda: adamw.update(grads, opt, params, ocfg, 1.0),
+                  torch.device(where).type)
+    return st.bytes_accessed
+
+
+def adamw_kernel_bytes(state, plan) -> int:
+    """The bytes the AdamW kernel moves in one train step, which the
+    roofline counter cannot see (a ctypes launch): each gradient read
+    twice (the norm and the update), each parameter, ``m`` and ``v`` read
+    and written once."""
+    import torch.utils._pytree as pytree
+    gdt = getattr(torch, plan.accum_dtype) if plan.grad_accum > 1 else None
+    opt = state["opt"]
+    return sum(2 * p.numel() * ((gdt or p.dtype).itemsize + p.element_size()
+                                + m.element_size() + v.element_size())
+               for p, m, v in zip(*(pytree.tree_leaves(t) for t in (
+                   state["params"], opt["m"], opt["v"]))))
+
+
 def roofline_cell(run_phase, shape: str, meta_for, dev) -> dict:
     """One ROOF_SHAPES cell on the card: the counter over the step on real
     tensors (plain attention), the step's wall, profiled busy time, peak
@@ -2382,12 +2448,22 @@ def roofline_cell(run_phase, shape: str, meta_for, dev) -> dict:
     peak = torch.cuda.max_memory_allocated() - before
     del out
     busy = profiled_busy_ms(timed)
+    args_state = args[0] if kind == "train" else None
     del timed, run, args
     torch.cuda.empty_cache()
 
     meta = meta_for(shape)
     rl = meta["roofline"]
     mem = rl["memory_per_device"]
+    # the card's AdamW goes through its kernel and the dry run's DTensors
+    # through the loop, so the optimizer's bytes differ by design: held
+    # equal is the step less the optimizer, each side's counted alone
+    opt_card = opt_meta = 0.0
+    kernel_bytes = 0
+    if kind == "train":
+        opt_card, opt_meta = (optimizer_bytes(args_state, plan, where)
+                              for where in (dev, "meta"))
+        kernel_bytes = adamw_kernel_bytes(args_state, plan)
     log(f"{name}: meta {rl['flops_per_device']:.6e} FLOPs "
         f"{rl['bytes_per_device']:.6e} bytes, card {st.flops:.6e} FLOPs "
         f"{st.bytes_accessed:.6e} bytes; arguments meta "
@@ -2398,15 +2474,20 @@ def roofline_cell(run_phase, shape: str, meta_for, dev) -> dict:
     check(st.flops == rl["flops_per_device"],
           f"{name}: the card counts {st.flops} FLOPs, the dry run "
           f"{rl['flops_per_device']}")
-    check(st.bytes_accessed == rl["bytes_per_device"],
-          f"{name}: the card counts {st.bytes_accessed} bytes, the dry run "
-          f"{rl['bytes_per_device']}")
+    check(st.bytes_accessed - opt_card == rl["bytes_per_device"] - opt_meta,
+          f"{name}: the card counts {st.bytes_accessed} bytes ({opt_card} "
+          f"of them AdamW's), the dry run {rl['bytes_per_device']} "
+          f"({opt_meta} AdamW's)")
     check(arg_bytes == mem["argument_size_in_bytes"],
           f"{name}: the step's tensors hold {arg_bytes} bytes, the dry run "
           f"says {mem['argument_size_in_bytes']}")
     wall = walls[len(walls) // 2]
     model_flops = model_flops_for(cfg, shape, seq, batch, kind)
-    bound_ms = max(rl["compute_s"], rl["memory_s"]) * 1e3
+    # the card's bytes: the counted step and the AdamW kernel's, which the
+    # counter cannot see; the dry run's count the loop's instead
+    card_bytes = st.bytes_accessed + kernel_bytes
+    memory_ms = bytes_ms(card_bytes)
+    bound_ms = max(rl["compute_s"] * 1e3, memory_ms)
     res = dict(
         kind=kind, batch=batch, seq=seq, plan=meta["plan"],
         flops=st.flops, bytes=st.bytes_accessed,
@@ -2415,16 +2496,23 @@ def roofline_cell(run_phase, shape: str, meta_for, dev) -> dict:
         temp_bytes_meta=mem["temp_size_in_bytes"],
         temp_bytes_card_count=st.peak_live_bytes,
         peak_allocated_bytes=peak, compute_ms=rl["compute_s"] * 1e3,
-        memory_ms=rl["memory_s"] * 1e3, bound_ms=bound_ms,
-        bottleneck=rl["bottleneck"], timed_attention=attn,
+        memory_ms=memory_ms, memory_ms_dry_run=rl["memory_s"] * 1e3,
+        bound_ms=bound_ms, card_bytes=card_bytes,
+        bottleneck="compute" if rl["compute_s"] * 1e3 >= memory_ms
+        else "memory", timed_attention=attn,
         wall_ms=walls, wall_ms_median=wall, device_busy_ms=busy,
         model_flops=model_flops, mfu=model_flops / (BF16_FLOPS * wall / 1e3),
-        busy_over_bound=busy / bound_ms, dry_run_s=meta["child_s"])
+        busy_over_bound=busy / bound_ms, dry_run_s=meta["child_s"],
+        adamw_bytes_card=opt_card, adamw_bytes_dry_run=opt_meta,
+        adamw_kernel_bytes=kernel_bytes)
+    del args_state
     log(f"{name}: {attn} attention wall median {wall:.3f} ms, device busy "
         f"{busy:.3f} ms (profiled) against compute {res['compute_ms']:.3f} "
-        f"ms, memory {res['memory_ms']:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({rl['bottleneck']}); MFU {res['mfu']:.4f}; temp predicted "
-        f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB (card count "
+        f"ms, memory {memory_ms:.3f} ms ({card_bytes:.6e} bytes with the "
+        f"AdamW kernel's {kernel_bytes:.6e}; the dry run's "
+        f"{res['memory_ms_dry_run']:.3f} ms with the loop's), bound "
+        f"{bound_ms:.3f} ms ({res['bottleneck']}); MFU {res['mfu']:.4f}; "
+        f"temp predicted {mem['temp_size_in_bytes'] / 1e9:.3f} GB (card count "
         f"{st.peak_live_bytes / 1e9:.3f}), peak allocated above the "
         f"arguments by the plain-attention step {peak / 1e9:.3f} GB; dry run "
         f"{meta['child_s']:.1f} s")
@@ -2472,6 +2560,132 @@ def roofline_phase(run_phase, card: str, dev) -> dict:
             child.kill()
             child.join(timeout=30)
     out["dry_run_wall_s"] = metas["wall_s"]
+    return out
+
+
+def adamw_row(dev) -> dict:
+    """The AdamW kernel (``kernels/adamw.py``) at qwen3-1.7b's full
+    parameter tree: each leaf's sum of squares against ``torch.sum``, the
+    update against the loop (``optim.adamw.leaf_update``) to the bit at
+    the same scalars, the kernels' CUDA-event times beside their bounds,
+    the whole ``adamw.update`` call's profiled device time and host time,
+    the loop's, and ``torch._fused_adamw_``'s (a yardstick the port never
+    calls: it takes one dtype for all four lists, so f32 throughout, 28
+    bytes a parameter)."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import KERNEL, Leaves
+    from repro_torch.models import Model
+    from repro_torch.models.layers import plain_tree
+    from repro_torch.optim import AdamWConfig, adamw
+    cfg = get_config("qwen3-1.7b")
+    shapes = pytree.tree_leaves(plain_tree(Model(cfg, device="meta")
+                                           .param_shapes()))
+    gen = torch.Generator(device=dev).manual_seed(30)
+    draw = lambda t, scale: torch.randn(t.shape, generator=gen,
+                                        device=dev) * scale
+    p = [draw(t, 0.02).bfloat16() for t in shapes]
+    g = [draw(t, 1e-3).bfloat16() for t in shapes]
+    m = [draw(t, 1e-4) for t in shapes]
+    v = [draw(t, 1e-4).square() for t in shapes]
+    n = sum(t.numel() for t in p)
+    ocfg = AdamWConfig()
+    # the scalars of a step at count 3, from the kernel's own norm
+    sums = Leaves(g, m, v, p, torch.float32).sums_of_squares()
+    want = torch.stack([torch.sum(torch.square(x.float())) for x in g])
+    sum_rel = float(((sums.double() - want.double()).abs() /
+                     want.double()).max())
+    gnorm = torch.sqrt(torch.sum(sums))
+    gnorm_rel = rel_err(gnorm, adamw.global_norm(g))
+    check(sum_rel <= ADAMW_SUM_RTOL and gnorm_rel <= ADAMW_SUM_RTOL,
+          f"adamw: leaf sums of squares off by {sum_rel}, norm by "
+          f"{gnorm_rel} (limit {ADAMW_SUM_RTOL})")
+    scale = torch.clamp(ocfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    c = torch.tensor(3.0, device=dev)
+    bc1, bc2 = 1.0 - torch.pow(ocfg.b1, c), 1.0 - torch.pow(ocfg.b2, c)
+    scalars = torch.stack([scale, bc1, bc2,
+                           torch.full((), ocfg.lr, device=dev)])
+    leaves = Leaves(g, m, v, p, torch.float32)
+
+    def update():
+        return leaves.update(scalars, b1=ocfg.b1, b2=ocfg.b2, eps=ocfg.eps,
+                             weight_decay=ocfg.weight_decay)
+
+    got = update()
+    differ = 0
+    for i, (gi, mi, vi, pi) in enumerate(zip(g, m, v, p)):
+        loop = adamw.leaf_update(gi * scale.to(gi.dtype), mi, vi, pi, bc1,
+                                 bc2, ocfg.lr, ocfg)
+        differ += sum(not same_bits(a, b) for a, b in
+                      zip(loop, (got[0][i], got[1][i], got[2][i])))
+    check(differ == 0, f"adamw: {differ} output leaves differ from the "
+          "loop's bits")
+    del got, loop
+    out = dict(kernel=KERNEL, params=n, leaves=len(p), sum_rel=sum_rel,
+               gnorm_rel=gnorm_rel, bitwise_leaves=3 * len(p))
+    out["ms"] = cuda_ms(update, 10)
+    out["bound_ms"] = bytes_ms(ADAMW_UPDATE_BYTES * n)
+    out["norm_ms"] = cuda_ms(leaves.sums_of_squares, 10)
+    out["norm_bound_ms"] = bytes_ms(ADAMW_NORM_BYTES * n)
+    del leaves
+    torch.cuda.empty_cache()
+    params = {f"w{i}": t for i, t in enumerate(p)}
+    state = {"m": {f"w{i}": t for i, t in enumerate(m)},
+             "v": {f"w{i}": t for i, t in enumerate(v)},
+             "count": torch.tensor(2, dtype=torch.int32, device=dev)}
+    grads = {f"w{i}": t for i, t in enumerate(g)}
+    before = dict(KERNEL.function_launches)
+    adamw.update(grads, state, params, ocfg)
+    torch.cuda.synchronize()
+    after = KERNEL.function_launches
+    out["launches_a_call"] = {k: after[k] - before.get(k, 0) for k in after}
+    check(out["launches_a_call"] == ADAMW_A_STEP,
+          f"adamw.update launched {out['launches_a_call']}")
+    out["call_device_ms"] = profiled_busy_ms(
+        lambda: adamw.update(grads, state, params, ocfg))
+    out["call_bound_ms"] = bytes_ms((ADAMW_UPDATE_BYTES + ADAMW_NORM_BYTES)
+                                    * n)
+    out["call_host_us"] = host_us(
+        lambda: adamw.update(grads, state, params, ocfg), 3)
+
+    def loop():
+        gn = adamw.global_norm(g)
+        sc = torch.clamp(ocfg.clip_norm / (gn + 1e-9), max=1.0)
+        return [adamw.leaf_update(gi * sc.to(gi.dtype), mi, vi, pi, bc1,
+                                  bc2, ocfg.lr, ocfg)
+                for gi, mi, vi, pi in zip(g, m, v, p)]
+    out["plain_ms"] = profiled_busy_ms(loop)
+    out["plain_host_us"] = host_us(loop, 1, rounds=3)
+    del params, state, grads
+    torch.cuda.empty_cache()
+    # the library yardstick, f32 parameters and gradients over m and v
+    p32 = [t.float() for t in p]
+    g32 = [t.float() for t in g]
+    del p, g
+    steps = [torch.tensor(3.0, device=dev) for _ in p32]
+    out["library_ms"] = cuda_ms(lambda: torch._fused_adamw_(
+        p32, g32, m, v, [], steps, lr=ocfg.lr, beta1=ocfg.b1,
+        beta2=ocfg.b2, weight_decay=ocfg.weight_decay, eps=ocfg.eps,
+        amsgrad=False, maximize=False), 10)
+    out["library"] = ("torch._fused_adamw_, f32 params, grads, m, v (28 "
+                      "bytes a parameter)")
+    out["library_bound_ms"] = bytes_ms(28 * n)
+    del p32, g32, m, v, steps
+    torch.cuda.empty_cache()
+    log(f"adamw qwen3-1.7b tree ({len(shapes)} leaves, {n} parameters): "
+        f"update kernel {out['ms']:.4f} ms against a bound of "
+        f"{out['bound_ms']:.4f} ms ({out['bound_ms'] / out['ms']:.3f} of "
+        f"it); norm {out['norm_ms']:.4f} ms (bound "
+        f"{out['norm_bound_ms']:.4f}); adamw.update {out['call_device_ms']:.3f}"
+        f" ms of device (bound {out['call_bound_ms']:.3f}), "
+        f"{out['call_host_us'] / 1e3:.3f} ms of host, launches "
+        f"{out['launches_a_call']}; the loop {out['plain_ms']:.3f} ms of "
+        f"device, {out['plain_host_us'] / 1e3:.3f} ms of host; "
+        f"torch._fused_adamw_ f32 {out['library_ms']:.4f} ms (bound "
+        f"{out['library_bound_ms']:.4f}); {3 * len(shapes)} output leaves "
+        f"equal to the loop's bits; leaf sums within {sum_rel:.3g}, norm "
+        f"within {gnorm_rel:.3g}")
     return out
 
 
@@ -3269,6 +3483,7 @@ def main() -> int:
         del q, k, v, got, want
     rows["flash_attention"]["family_shapes"] = family_shapes
     torch.cuda.empty_cache()
+    rows["adamw"] = adamw_row(dev)
 
     # -- main path --------------------------------------------------------------
     launches = {k.name: 0 for k in KERNELS}

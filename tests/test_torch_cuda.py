@@ -1022,3 +1022,216 @@ def test_counter_on_a_bf16_matmul_on_the_card_counts_as_on_meta(cuda_device):
         got[dev.type] = (st.flops, st.bytes_accessed, st.flops_by_op)
     assert got["cuda"] == got["meta"] == (
         2 * m * n * k, 2 * (m * k + k * n + m * n), {"aten.mm": 2 * m * n * k})
+
+
+# -- the AdamW kernel --------------------------------------------------------------
+_ADAMW_DTYPES = [(g, p, s) for g in (torch.bfloat16, torch.float32)
+                 for p in (torch.bfloat16, torch.float32)
+                 for s in (torch.float32, torch.bfloat16)]
+#: leaf sizes: one element, under one 8-element group, whole groups and a
+#: tail, two chunks and one element, and over 4 M elements
+_ADAMW_SIZES = (1, 7, 2047, 65537, (1 << 22) + 3)
+
+
+def _qwen3_smoke_shapes(n_layers=28):
+    """The leaf shapes of qwen3-1.7b's smoke config at 28 layers: 310."""
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.models.layers import plain_tree
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              n_layers=n_layers)
+    return [tuple(t.shape) for t in pytree.tree_leaves(
+        plain_tree(Model(cfg, device="meta").param_shapes()))]
+
+
+def _offset(t):
+    """``t``'s values in a view one element into its storage: an address
+    that no 16-byte load may take."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.flatten())
+    return buf[1:].view(t.shape)
+
+
+def _adamw_leaves(shapes, g_dt, p_dt, s_dt, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    draw = lambda shape, scale: torch.randn(shape, generator=gen,
+                                            device=dev) * scale
+    g = [draw(s, 3.0).to(g_dt) for s in shapes]
+    m = [draw(s, 0.1).to(s_dt) for s in shapes]
+    v = [draw(s, 0.1).square().to(s_dt) for s in shapes]
+    p = [draw(s, 1.0).to(p_dt) for s in shapes]
+    return g, m, v, p
+
+
+def _adamw_cfg(s_dt):
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=1e-3, state_dtype=str(s_dt).removeprefix("torch."))
+
+
+def _adamw_scalars(dev, scale):
+    """``[scale, bc1, bc2, lr]`` at count 3, as ``adamw.update`` makes
+    them, and the Python ``lr`` the loop takes."""
+    cfg = _adamw_cfg(torch.float32)
+    c = torch.tensor(3.0, device=dev)
+    bc1, bc2 = 1.0 - torch.pow(cfg.b1, c), 1.0 - torch.pow(cfg.b2, c)
+    return (torch.stack([scale, bc1, bc2, torch.full((), cfg.lr,
+                                                      device=dev)]),
+            bc1, bc2, cfg.lr)
+
+
+def _adamw_loop(g, m, v, p, scale, bc1, bc2, lr, cfg):
+    from repro_torch.optim import adamw
+    out = [adamw.leaf_update(gi * scale.to(gi.dtype), mi, vi, pi, bc1, bc2,
+                             lr, cfg) for gi, mi, vi, pi in zip(g, m, v, p)]
+    return [list(o) for o in zip(*out)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _same_bits(a, b):
+    return (a.dtype == b.dtype and a.shape == b.shape and
+            torch.equal(_bits(a), _bits(b)))
+
+
+def _adamw_function_launches():
+    from repro_torch.kernels.adamw import KERNEL
+    return dict(KERNEL.function_launches)
+
+
+@pytest.mark.parametrize("g_dt,p_dt,s_dt", _ADAMW_DTYPES)
+def test_adamw_kernel_equals_the_loop_bit_for_bit(cuda_device, g_dt, p_dt,
+                                                  s_dt):
+    """The same scalars give the loop's p', m' and v' to the bit, with a
+    clip scale and with none (1), over ragged and large leaves, a leaf
+    whose every pointer is unaligned, a transposed gradient, and
+    qwen3-1.7b's 310 smoke leaves."""
+    from repro_torch.kernels.adamw import Leaves
+    cfg = _adamw_cfg(s_dt)
+    shapes = [(n,) for n in _ADAMW_SIZES] + [(33, 70)] + \
+        _qwen3_smoke_shapes()
+    g, m, v, p = _adamw_leaves(shapes, g_dt, p_dt, s_dt, cuda_device)
+    g[0], m[1], v[2], p[3] = _offset(g[0]), _offset(m[1]), _offset(v[2]), \
+        _offset(p[3])
+    g[4], m[4], v[4], p[4] = (_offset(t) for t in (g[4], m[4], v[4], p[4]))
+    g[5] = g[5].t().contiguous().t()                # column-major gradient
+    assert not g[5].is_contiguous()
+    for scale in (torch.tensor(0.37, device=cuda_device),
+                  torch.ones((), device=cuda_device)):
+        scalars, bc1, bc2, lr = _adamw_scalars(cuda_device, scale)
+        got = Leaves(g, m, v, p, s_dt).update(
+            scalars, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+            weight_decay=cfg.weight_decay)
+        want = _adamw_loop(g, m, v, p, scale, bc1, bc2, lr, cfg)
+        for name, gl, wl in zip("pmv", got, want):
+            for i, (a, b) in enumerate(zip(gl, wl)):
+                assert a.device == cuda_device
+                assert _same_bits(a, b), (name, i, shapes[i], float(scale),
+                                          (a.float() - b.float()).abs().max())
+
+
+def test_adamw_leaves_give_the_same_bits_when_called_again(cuda_device):
+    """A second ``sums_of_squares`` and ``update`` on one ``Leaves`` read
+    the same inputs, the contiguous copies of non-contiguous leaves too,
+    though the allocator has handed out blocks of their size between the
+    calls."""
+    from repro_torch.kernels.adamw import Leaves
+    cfg = _adamw_cfg(torch.float32)
+    g, m, v, p = _adamw_leaves([(33, 70), (2047,), (64, 48)], torch.bfloat16,
+                               torch.bfloat16, torch.float32, cuda_device)
+    g[0], m[2] = g[0].t().contiguous().t(), m[2].t().contiguous().t()
+    leaves = Leaves(g, m, v, p, torch.float32)
+    scalars = _adamw_scalars(cuda_device,
+                             torch.tensor(0.37, device=cuda_device))[0]
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+              weight_decay=cfg.weight_decay)
+    sums = leaves.sums_of_squares().clone()
+    first = [[t.clone() for t in out] for out in leaves.update(scalars, **kw)]
+    junk = [torch.full_like(t, float("nan")) for t in (g[0], m[2])
+            for _ in range(8)]
+    assert _same_bits(leaves.sums_of_squares(), sums)
+    for a, b in zip(first, leaves.update(scalars, **kw)):
+        assert all(_same_bits(x, y) for x, y in zip(a, b))
+    del junk
+
+
+@pytest.mark.parametrize("g_dt", [torch.bfloat16, torch.float32])
+def test_adamw_kernel_sums_of_squares(cuda_device, g_dt):
+    from repro_torch.kernels.adamw import Leaves
+    shapes = [(n,) for n in _ADAMW_SIZES] + [(0,), (33, 70)]
+    g, m, v, p = _adamw_leaves(shapes, g_dt, torch.float32, torch.float32,
+                               cuda_device)
+    g[2] = _offset(g[2])
+    got = Leaves(g, m, v, p, torch.float32).sums_of_squares()
+    want = torch.stack([torch.sum(x.float() ** 2) for x in g])
+    assert got.dtype == torch.float32 and got.shape == (len(shapes),)
+    assert float(got[5]) == 0.0
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-6)
+
+
+def _adamw_state(shapes, dev, seed=0):
+    from repro_torch.optim import adamw
+    cfg = _adamw_cfg(torch.float32)
+    g, m, v, p = _adamw_leaves(shapes, torch.bfloat16, torch.bfloat16,
+                               torch.float32, dev, seed)
+    tree = lambda leaves: {f"w{i}": t for i, t in enumerate(leaves)}
+    state = {"m": tree(m), "v": tree(v),
+             "count": torch.tensor(2, dtype=torch.int32, device=dev)}
+    return tree(g), state, tree(p), cfg, adamw
+
+
+def test_adamw_update_on_the_card_is_pure_repeatable_and_the_loops(
+        cuda_device):
+    """Through ``adamw.update`` on qwen3-1.7b's 310 smoke leaves: two
+    calls give the same bits, the inputs are left as they were, every
+    leaf is counted as the kernel's, the norm is the loop's within 1e-6,
+    and the update is the loop's to the bit at the kernel's clip scale."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch import trace
+    grads, state, params, cfg, adamw = _adamw_state(_qwen3_smoke_shapes(),
+                                                    cuda_device)
+    before = [t.clone() for t in pytree.tree_leaves((grads, state, params))]
+    with trace.recording():
+        a = adamw.update(grads, state, params, cfg)
+        counts = trace.counters()
+    b = adamw.update(grads, state, params, cfg)
+    assert counts["optim.fused_leaves"] == 310
+    assert counts["optim.loop_leaves"] == 0
+    assert counts["cuda.adamw_update"] == 1
+    for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)):
+        assert _same_bits(x, y)
+    for x, y in zip(before, pytree.tree_leaves((grads, state, params))):
+        assert _same_bits(x, y)
+    g = pytree.tree_leaves(grads)
+    gnorm = a[2]["grad_norm"]
+    np.testing.assert_allclose(float(gnorm), float(adamw.global_norm(g)),
+                               rtol=1e-6)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    c = (state["count"] + 1).float()
+    want = _adamw_loop(g, pytree.tree_leaves(state["m"]),
+                       pytree.tree_leaves(state["v"]),
+                       pytree.tree_leaves(params), scale,
+                       1.0 - torch.pow(cfg.b1, c), 1.0 - torch.pow(cfg.b2, c),
+                       cfg.lr, cfg)
+    got = [pytree.tree_leaves(a[0]), pytree.tree_leaves(a[1]["m"]),
+           pytree.tree_leaves(a[1]["v"])]
+    for gl, wl in zip(got, want):
+        assert all(_same_bits(x, y) for x, y in zip(gl, wl))
+    assert int(a[1]["count"]) == 3
+
+
+@pytest.mark.parametrize("n_leaves", [1, 10, 310])
+def test_adamw_update_launches_do_not_grow_with_the_leaves(cuda_device,
+                                                           n_leaves):
+    grads, state, params, cfg, adamw = _adamw_state(
+        _qwen3_smoke_shapes()[:n_leaves], cuda_device)
+    before = _adamw_function_launches()
+    adamw.update(grads, state, params, cfg, torch.tensor(0.5))
+    after = _adamw_function_launches()
+    assert {k: after[k] - before.get(k, 0) for k in after} == {
+        "adamw_norm_chunks": 1, "adamw_norm_leaves": 1, "adamw_update": 1}

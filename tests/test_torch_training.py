@@ -35,6 +35,8 @@ from repro_torch.convert import (from_jax_arrays, params_from_jax,
                                  train_state_from_jax)
 from repro_torch.data import Prefetcher, SyntheticLM
 from repro_torch.dist import step as step_mod
+from repro_torch.kernels import KERNELS
+from repro_torch.kernels import adamw as fused_adamw
 from repro_torch.launch import train as launch_train
 from repro_torch.models import Model, train_input_specs
 from repro_torch.models import attention as attn_mod
@@ -358,6 +360,95 @@ def test_adamw_keeps_dtypes_and_writes_nothing():
     assert p["w"].dtype == torch.bfloat16 and s["m"]["w"].dtype == torch.bfloat16
     assert all(torch.equal(a, b) for a, b in zip(before,
                                                  _leaves((params, state))))
+
+
+def test_adamw_cpu_leaves_take_the_loop_and_count_it():
+    from repro_torch import trace
+    cfg = AdamWConfig()
+    params = {"w": torch.ones(3, 4), "b": {"c": torch.ones(5)}}
+    state = adamw.init(params, cfg)
+    grads = pytree.tree_map(lambda p: torch.full_like(p, 0.5), params)
+    before = [dict(k.function_launches) for k in KERNELS]
+    with trace.recording():
+        for _ in range(2):
+            adamw.update(grads, state, params, cfg)
+        counts = trace.counters()
+    assert counts["optim.loop_leaves"] == 4
+    assert counts["optim.fused_leaves"] == 0
+    assert [dict(k.function_launches) for k in KERNELS] == before
+
+
+def test_adamw_kernel_module_imports_without_nvcc():
+    """Importing builds nothing: the library is built at the first launch,
+    on a machine with nvcc."""
+    assert fused_adamw.KERNEL in KERNELS
+    assert fused_adamw.KERNEL._lib is None
+    assert fused_adamw.KERNEL.source_path.exists()
+    assert set(fused_adamw.KERNEL.functions) == {
+        "adamw_norm_chunks", "adamw_norm_leaves", "adamw_update"}
+    assert fused_adamw.CHUNK % 8 == 0
+
+
+def test_adamw_kernel_takes_plain_cuda_leaves_only():
+    """CPU and ``meta`` leaves take the loop; so does an empty tree."""
+    assert not fused_adamw.takes([torch.ones(2), torch.ones(2)])
+    assert not fused_adamw.takes([torch.empty(2, device="meta")])
+    assert not fused_adamw.takes([])
+
+
+@pytest.mark.parametrize("g_dt,p_dt,s_dt", [
+    (g, p, s) for g in (torch.bfloat16, torch.float32)
+    for p in (torch.bfloat16, torch.float32)
+    for s in (torch.float32, torch.bfloat16)])
+def test_adamw_leaf_update_in_each_dtype_set_the_kernel_takes(g_dt, p_dt,
+                                                              s_dt):
+    """The loop's leaf, the plain version the kernel is held to, in each
+    of the kernel's eight dtype sets: ``p'`` in ``p``'s dtype, ``m'`` and
+    ``v'`` in the state's, each the f64 update rounded to its dtype."""
+    cfg = AdamWConfig(lr=1e-2, weight_decay=0.1,
+                      state_dtype=str(s_dt).removeprefix("torch."))
+    gen = torch.Generator().manual_seed(0)
+    draw = lambda scale: torch.randn(64, generator=gen) * scale
+    g, p = draw(1.0).to(g_dt), draw(1.0).to(p_dt)
+    m, v = draw(0.1).to(s_dt), draw(0.1).square().to(s_dt)
+    bc1, bc2 = 1 - cfg.b1 ** 3, 1 - cfg.b2 ** 3
+    got = adamw.leaf_update(g, m, v, p, torch.tensor(bc1), torch.tensor(bc2),
+                            cfg.lr, cfg)
+    assert [t.dtype for t in got] == [p_dt, s_dt, s_dt]
+    gd, md, vd, pd = (t.double() for t in (g, m, v, p))
+    mw = md * cfg.b1 + gd * (1 - cfg.b1)
+    vw = vd * cfg.b2 + gd ** 2 * (1 - cfg.b2)
+    pw = pd - cfg.lr * ((mw / bc1) / (torch.sqrt(vw / bc2) + cfg.eps) +
+                        cfg.weight_decay * pd)
+    for x, want in zip(got, (pw, mw, vw)):
+        tol = 1e-2 if x.dtype == torch.bfloat16 else 1e-5
+        np.testing.assert_allclose(x.double().numpy(), want.numpy(),
+                                   rtol=tol, atol=tol * 1e-2)
+
+
+@pytest.mark.parametrize("g_dt,p_dt,s_dt", [
+    (torch.float16, torch.float32, torch.float32),
+    (torch.float32, torch.float64, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float16)])
+def test_adamw_kernel_refuses_other_dtypes(g_dt, p_dt, s_dt):
+    """On ``meta`` tensors: the table is refused before anything is
+    allocated on a card or launched."""
+    mk = lambda dt: [torch.empty(3, dtype=dt, device="meta")]
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fused_adamw.Leaves(mk(g_dt), mk(s_dt), mk(s_dt), mk(p_dt), s_dt)
+
+
+def test_adamw_kernel_refuses_mismatched_leaves():
+    meta = lambda shape, dt=torch.float32: [
+        torch.empty(shape, dtype=dt, device="meta")]
+    with pytest.raises(ValueError, match="differ in size"):
+        fused_adamw.Leaves(meta(3), meta(3), meta(3), meta(4), torch.float32)
+    with pytest.raises(TypeError, match="AdamW state"):
+        fused_adamw.Leaves(meta(3), meta(3, torch.bfloat16), meta(3),
+                           meta(3), torch.float32)
+    with pytest.raises(ValueError, match="leaves"):
+        fused_adamw.Leaves(meta(3), meta(3), meta(3), meta(3) + meta(3),
+                           torch.float32)
 
 
 def test_warmup_cosine_matches_jax():
