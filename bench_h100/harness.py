@@ -55,8 +55,8 @@ def _runner(kind: str):
 def reference_numbers(cell, drv, params, device, mode: str = "f32"):
     """(compared numbers, diagnostics) of what ``drv`` produced, or, with
     ``mode="fp8"``, of the reference in that precision in the program's
-    place."""
-    from .reference import model as ref
+    place; the reference is the configuration's (``spec.reference``)."""
+    ref = spec.reference(cell.config_name)
     ref.exact()
     if cell.traffic["kind"] == "train":
         out = ref.train_steps(params, cell.config, drv.batches,
@@ -110,7 +110,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     from repro_torch.models import Model
     shapes = Model(cfg, device="meta").param_shapes()
     from repro_torch.models.layers import plain_tree
-    params = weights_mod.draw(plain_tree(shapes), seed, dev)
+    params = weights_mod.draw(plain_tree(shapes), seed, dev,
+                              cell.config.get("draw"))
     drv = _runner(cell.traffic["kind"])(cell, cfg, params, seed, dev,
                                         seconds)
     sync(dev)

@@ -1,5 +1,7 @@
 """Small sizes for the benchmark's CPU tests: every cell's own traffic
-kind and limits, at smoke widths and short requests, on the CPU."""
+kind and limits, at smoke widths and short requests, on the CPU. A
+configuration file's optional ``smoke`` dict is applied over ``SMALL``,
+a sub-config's dict key by key."""
 import dataclasses
 import os
 import sys
@@ -24,6 +26,10 @@ def small_cell(cell, cfg):
     run = dict(cell.config["run"], **SMALL)
     if "moe" in run:
         run["moe"] = dict(run["moe"], n_experts=4, group_size=64)
+    for key, value in cell.config.get("smoke", {}).items():
+        if isinstance(value, dict):
+            value = dict(run.get(key, {}), **value)
+        run[key] = value
     conf = dict(cell.config, run=run)
     cell = dataclasses.replace(cell, config=conf)
     mix = dict(cell.traffic)

@@ -6,13 +6,17 @@ leaves of one dtype are views into one buffer, filled by one
 ``normal_`` from a ``torch.Generator`` on the device, then scaled leaf by
 leaf: a norm scale to 1 + 0.1·N(0, 1), the (tied) embedding to
 1/√d_model, every other weight to 1/√fan-in (its second-last axis, which
-the port multiplies from the left). The same tensors go to the program
+the port multiplies from the left), any other 1-D leaf to 0.02·N(0, 1).
+A configuration file's optional ``draw`` table overrides this by leaf
+name: ``{"a_log": {"mean": m, "std": s}}`` makes every leaf of that name
+m + s·N(0, 1), from the same buffer, so the leaves' order and the
+generators' streams stay as they are. The same tensors go to the program
 and to the reference; nothing here calls the program's own ``init``.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -64,9 +68,14 @@ def std_of(path: Tuple, shape) -> float:
     return 0.02
 
 
-def draw(shapes, seed: int, device) -> Dict[str, Any]:
+def draw(shapes, seed: int, device,
+         rules: Optional[Dict[str, Dict[str, float]]] = None
+         ) -> Dict[str, Any]:
     """A plain nested tree (dict keys sorted) of leaves like ``shapes``
-    (a tree of ``meta`` tensors), drawn from ``seed`` on ``device``."""
+    (a tree of ``meta`` tensors), drawn from ``seed`` on ``device``;
+    ``rules`` is a configuration's ``draw`` table (leaf name → ``mean``,
+    ``std``)."""
+    rules = rules or {}
     leaves = list(_leaves(shapes))
     out = _skeleton(shapes)
     by_dtype: Dict[torch.dtype, List] = {}
@@ -81,8 +90,11 @@ def draw(shapes, seed: int, device) -> Dict[str, Any]:
         for path, t in group:
             view = buf[off:off + t.numel()].view(t.shape)
             off += t.numel()
+            rule = rules.get(path[-1])
             std = std_of(path, tuple(t.shape))
-            if std == 0.0:
+            if rule is not None:
+                view.mul_(float(rule["std"])).add_(float(rule["mean"]))
+            elif std == 0.0:
                 view.mul_(0.1).add_(1.0)
             else:
                 view.mul_(std)
