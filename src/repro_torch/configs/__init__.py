@@ -8,10 +8,16 @@ qwen1.5-32b, nemotron-4-340b), the moe (phi-3.5-moe, dbrx-132b), ssm
 (mamba2-130m), hybrid (recurrentgemma-9b), encdec (whisper-tiny) and vlm
 (qwen2-vl-2b) families. ``wah_paper`` holds the paper's own indexing
 workload, which is no model and has no entry here.
+
+:data:`ARCHS` and :func:`list_archs` are the JAX package's list. The port
+runs one architecture besides, which the JAX package has no counterpart
+of: granite-4.0-h-small (a hybrid of SSD mixers and NoPE attention with
+experts and a shared expert in every layer); :func:`get_config` and
+:func:`get_smoke_config` resolve it, :data:`PORT_ONLY` names it.
 """
-from . import (dbrx, llama3_8b, mamba2_130m, nemotron4_340b, phi35_moe,
-               qwen2_vl, qwen3_1p7b, qwen15_32b, recurrentgemma_9b,
-               whisper_tiny)
+from . import (dbrx, granite40_h_small, llama3_8b, mamba2_130m,
+               nemotron4_340b, phi35_moe, qwen2_vl, qwen3_1p7b, qwen15_32b,
+               recurrentgemma_9b, whisper_tiny)
 from .base import ModelConfig
 
 _MODULES = {
@@ -21,7 +27,11 @@ _MODULES = {
               recurrentgemma_9b)
 }
 
+#: the architectures the port runs that the JAX package does not
+_PORT_ONLY_MODULES = {m.ARCH: m for m in (granite40_h_small,)}
+
 ARCHS = tuple(_MODULES)
+PORT_ONLY = tuple(_PORT_ONLY_MODULES)
 
 #: assigned input shapes: name → (seq_len, global_batch, kind)
 SHAPES = {
@@ -34,9 +44,10 @@ SHAPES = {
 
 def _module(arch: str):
     try:
-        return _MODULES[arch]
+        return _MODULES.get(arch) or _PORT_ONLY_MODULES[arch]
     except KeyError:
-        raise KeyError(f"unknown arch {arch!r}; the port runs {ARCHS}") from None
+        raise KeyError(f"unknown arch {arch!r}; the port runs "
+                       f"{ARCHS + PORT_ONLY}") from None
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -58,5 +69,5 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> bool:
     return True
 
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "get_config", "get_smoke_config",
-           "list_archs", "shape_applicable"]
+__all__ = ["ARCHS", "PORT_ONLY", "SHAPES", "ModelConfig", "get_config",
+           "get_smoke_config", "list_archs", "shape_applicable"]

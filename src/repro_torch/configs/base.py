@@ -6,6 +6,11 @@ Every architecture the port runs gets a ``configs/<id>.py`` exporting
 ``config()`` (the exact published shape) and ``smoke_config()`` (a reduced
 same-family config for CPU tests). The registry in ``configs/__init__``
 resolves an arch id.
+
+The port's own fields (the shared expert, a global attention layer in a
+hybrid, and :class:`ModelConfig`'s last group: NoPE, the softmax scale,
+the embedding, residual and logit multipliers, the norm eps) are not in
+the JAX package's schema; each defaults to what the JAX package computes.
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ class MoEConfig:
     aux_loss_weight: float = 0.01
     #: routing group length; capacity C = ⌈k·g/E·cf⌉ is independent of S
     group_size: int = 4096
+    #: width of a shared expert that every token passes through beside the
+    #: routed ones (port only; 0: none)
+    shared_d_ff: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +47,8 @@ class SSMConfig:
 class HybridConfig:
     #: repeating unit of temporal mixers, e.g. ("rec", "rec", "attn")
     pattern: Tuple[str, ...] = ()
-    window: int = 2048         # local-attention window
+    #: local-attention window; None: global attention (port only)
+    window: Optional[int] = 2048
     lru_width: Optional[int] = None
     conv_width: int = 4
 
@@ -87,6 +96,14 @@ class ModelConfig:
     scan_layers: bool = True
     #: long-context support class, used to decide long_500k applicability
     subquadratic: bool = False
+    # port only (granite-4.0-h); each default computes as the JAX package
+    rope: bool = True                  # False: no position embedding (NoPE)
+    #: attention softmax scale; None: 1/√head_dim
+    attention_multiplier: Optional[float] = None
+    embedding_multiplier: float = 1.0  # x = m · E[token]
+    residual_multiplier: float = 1.0   # x + m · block(x)
+    logits_scaling: float = 1.0        # logits = head(x) / s
+    norm_eps: float = 1e-6
 
     # ------------------------------------------------------------------
     @property
@@ -117,15 +134,17 @@ class ModelConfig:
             self.n_heads * hd * d
         gated = self.mlp in ("swiglu", "geglu")
         mlp = d * f * (3 if gated else 2)
-        if self.family == "moe":
+        if self.moe.n_experts:
             mlp *= self.moe.n_experts
             mlp += d * self.moe.n_experts  # router
+            mlp += d * self.moe.shared_d_ff * (3 if gated else 2)
+        di = self.ssm.expand * d
+        n = self.ssm.state_dim
+        nh = di // self.ssm.head_dim
+        g = self.ssm.n_groups
+        ssm = d * (2 * di + 2 * g * n + nh) + di * d
         if self.family == "ssm":
-            di = self.ssm.expand * d
-            n = self.ssm.state_dim
-            nh = di // self.ssm.head_dim
-            g = self.ssm.n_groups
-            qkvo = d * (2 * di + 2 * g * n + nh) + di * d
+            qkvo = ssm
             mlp = 0
         if self.family == "hybrid":
             lru = self.hybrid.lru_width or d
@@ -133,7 +152,9 @@ class ModelConfig:
             att = qkvo
             pat = self.hybrid.pattern or ("rec",)
             frac_rec = sum(1 for p in pat if p == "rec") / len(pat)
-            qkvo = rec * frac_rec + att * (1 - frac_rec)
+            frac_ssm = sum(1 for p in pat if p == "ssm") / len(pat)
+            qkvo = rec * frac_rec + ssm * frac_ssm + \
+                att * (1 - frac_rec - frac_ssm)
         emb = v * d * (1 if self.tie_embeddings else 2)
         enc = 0
         if self.family == "encdec":
@@ -144,7 +165,7 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: only top_k experts)."""
-        if self.family != "moe":
+        if not self.moe.n_experts:
             return self.param_count()
         d, f, l = self.d_model, self.d_ff, self.n_layers
         gated = self.mlp in ("swiglu", "geglu")

@@ -34,8 +34,7 @@ from .. import trace
 from ..core import ActorRef, ActorSystem
 from ..core.api import Pipeline
 from ..core.memref import DeviceRef, as_device_array
-from ..models.layers import apply_norm
-from ..models.transformer import (apply_layers, default_positions,
+from ..models.transformer import (_logits, apply_layers, default_positions,
                                   embed_inputs, layer_kinds, unit_starts)
 
 __all__ = ["PipelineRunner", "make_layer_stage_actors"]
@@ -49,8 +48,9 @@ def _stage_fn(model, params, layers, first: bool, last: bool):
     ``(block params, kind, unit start)``.
 
     The first stage embeds tokens; the last applies the final norm and LM
-    head. Middle stages are residual-stream transforms, so only the
-    [B, S, D] activation crosses actor boundaries. The stage runs in a
+    head, by the fused forward's own head function. Middle stages are
+    residual-stream transforms, so only the [B, S, D] activation crosses
+    actor boundaries. The stage runs in a
     ``stage`` span, its input's transfer, embedding and positions in
     ``stage.embed``, the head in ``stage.head``."""
     cfg = model.cfg
@@ -69,10 +69,7 @@ def _stage_fn(model, params, layers, first: bool, last: bool):
             if not last:
                 return DeviceRef(x)
             with trace.span("stage.head"):
-                x = apply_norm(params["final_norm"], x, cfg.norm)
-                head = (params["embed"].T if cfg.tie_embeddings
-                        else params["head"])
-                return x @ head.to(x.dtype)
+                return _logits(params, cfg, x)
 
     return stage
 

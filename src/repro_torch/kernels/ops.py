@@ -166,9 +166,13 @@ def wah_interleave(fills: torch.Tensor, literals: torch.Tensor, *,
 # ----------------------------------------------------------------------------
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    impl: str = "auto") -> torch.Tensor:
-    """Online-softmax attention, q ``[B,H,Sq,D]``, k/v ``[B,Hkv,Skv,D]``;
-    a query that sees no key gives 0."""
+                    scale: Optional[float] = None, impl: str = "auto"
+                    ) -> torch.Tensor:
+    """Online-softmax attention, q ``[B,H,Sq,D]``, k/v ``[B,Hkv,Skv,D]``,
+    the logits times ``scale`` (None: 1/√D); a query that sees no key
+    gives 0."""
     if _plain(impl):
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
-    return _flash_attention_kernel(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return _flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                   scale=scale)

@@ -1,6 +1,8 @@
-"""Attention: GQA/MQA with qk-norm, QKV bias, RoPE or M-RoPE, local
-windows and cross-attention — the port of the JAX package's
-``repro/models/attention.py``.
+"""Attention: GQA/MQA with qk-norm, QKV bias, RoPE, M-RoPE or none
+(NoPE, ``cfg.rope`` false), local windows and cross-attention — the port
+of the JAX package's ``repro/models/attention.py``. The softmax scale is
+``cfg.attention_multiplier``, 1/√Dh where it is None
+(:func:`softmax_scale`).
 
 ``impl="kernel"`` is the counterpart of the JAX package's ``"pallas"``:
 it runs ``ops.flash_attention``, which launches the hand-written flash
@@ -37,9 +39,10 @@ from ..kernels import ops
 from .layers import (apply_norm, init_norm, m_rope_tables, normal,
                      rope_tables, rotate)
 
-__all__ = ["ATTN_IMPLS", "check_impl", "init_attention", "attention",
-           "project_kv", "init_kv_cache", "decode_rope", "decode_mask",
-           "write_index", "decode_attention_into", "decode_attention"]
+__all__ = ["ATTN_IMPLS", "check_impl", "softmax_scale", "init_attention",
+           "attention", "project_kv", "init_kv_cache", "decode_rope",
+           "decode_mask", "write_index", "decode_attention_into",
+           "decode_attention"]
 
 ATTN_IMPLS = ("ref", "kernel", "ref_chunked")
 #: query rows a chunk of ``"ref_chunked"`` without a ``:N``
@@ -56,6 +59,14 @@ def check_impl(impl: str) -> str:
         return impl
     raise ValueError(f"attn_impl={impl!r}; expected one of {ATTN_IMPLS} or "
                      "'ref_chunked:N'")
+
+
+def softmax_scale(cfg: ModelConfig) -> float:
+    """The scale of the attention logits: ``cfg.attention_multiplier``, or
+    1/√Dh where the config gives none."""
+    if cfg.attention_multiplier is None:
+        return cfg.resolved_head_dim ** -0.5
+    return cfg.attention_multiplier
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device
@@ -82,8 +93,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device
 def decode_rope(cfg: ModelConfig, positions: Optional[torch.Tensor]
                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """The RoPE tables for ``positions`` [B,S], or M-RoPE's for
-    ``positions`` [3,B,S] where ``cfg.m_rope`` (None: no rotation)."""
-    if positions is None:
+    ``positions`` [3,B,S] where ``cfg.m_rope`` (None: no rotation, also
+    where the config has no position embedding)."""
+    if positions is None or not cfg.rope:
         return None
     if cfg.m_rope:
         return m_rope_tables(positions, cfg.resolved_head_dim,
@@ -120,24 +132,24 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope, *,
 
 
 def _mha(q, k, v, *, causal: bool, window: Optional[int],
-         softcap: Optional[float], impl: str) -> torch.Tensor:
-    """q: [B,Sq,H,D] → [B,Sq,H,D]; k/v: [B,Skv,Hkv,D]. A sharded ``q``
-    runs on each device's own heads or query rows
-    (``dist.api.local_attention``)."""
+         softcap: Optional[float], impl: str, scale: float) -> torch.Tensor:
+    """q: [B,Sq,H,D] → [B,Sq,H,D]; k/v: [B,Skv,Hkv,D]; ``scale`` multiplies
+    the logits. A sharded ``q`` runs on each device's own heads or query
+    rows (``dist.api.local_attention``)."""
     from ..dist import api as dist_api
     sq = q.shape[1]
 
     def local(q, k, v, first, combine):
         return _mha_local(q, k, v, k.shape[1] - sq + first, causal=causal,
                           window=window, softcap=softcap, impl=impl,
-                          combine=combine)
+                          scale=scale, combine=combine)
 
     return dist_api.local_attention(local, q, k, v)
 
 
 def _mha_local(q, k, v, q_offset: int, *, causal: bool,
                window: Optional[int], softcap: Optional[float], impl: str,
-               combine=None) -> torch.Tensor:
+               scale: float, combine=None) -> torch.Tensor:
     """:func:`_mha` on tensors whose query i sits at key position
     ``q_offset + i``; with ``combine`` the keys are one device's share of
     them, unmasked (``dist.api.local_attention``)."""
@@ -156,38 +168,41 @@ def _mha_local(q, k, v, q_offset: int, *, causal: bool,
             raise NotImplementedError(
                 "attn_impl='kernel' takes whole rows of whole keys; queries "
                 "or keys split over devices need attn_impl='ref'")
-        out = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+        out = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
+                                  scale=scale)
         return out.transpose(1, 2)
     if impl.startswith("ref_chunked"):
         _, _, chunk = impl.partition(":")
         q_chunk = min(int(chunk) if chunk else DEFAULT_Q_CHUNK, sq)
         if sq % q_chunk == 0:
             return _mha_chunked(qt, kt, vt, q_offset, causal=causal,
-                                window=window, softcap=softcap,
+                                window=window, softcap=softcap, scale=scale,
                                 q_chunk=q_chunk, combine=combine
                                 ).transpose(1, 2)
     # (a sequence the chunk does not divide, such as whisper's 1500-frame
     # encoder, falls through to the plain path, as in JAX)
     out = _scores_softmax_pv(qt, kt, vt, q_offset, causal=causal,
-                             window=window, softcap=softcap, combine=combine)
+                             window=window, softcap=softcap, scale=scale,
+                             combine=combine)
     return out.transpose(1, 2).to(q.dtype)
 
 
 def _scores_softmax_pv(qt, kt, vt, q_offset: int, *, causal: bool,
                        window: Optional[int], softcap: Optional[float],
-                       combine=None) -> torch.Tensor:
+                       scale: float, combine=None) -> torch.Tensor:
     """The grouped-head einsum attention of the queries ``qt`` [B,H,Sq,D]
-    over ``kt``, ``vt`` [B,Hkv,Skv,D] → [B,H,Sq,D] in ``vt``'s dtype. Query
-    i sits at key position ``q_offset + i`` for the masks. With
+    over ``kt``, ``vt`` [B,Hkv,Skv,D] → [B,H,Sq,D] in ``vt``'s dtype, the
+    logits times ``scale``. Query i sits at key position ``q_offset + i``
+    for the masks. With
     ``combine`` the keys are one device's share of an unmasked attention:
     the softmax is taken with their own maximum and ``combine(o, l, m)``
     merges every device's (``dist.api.local_attention``)."""
-    h, sq, d = qt.shape[1:]
+    h, sq = qt.shape[1:3]
     hkv, skv = kt.shape[1], kt.shape[2]
     from ..dist import api as dist_api
     qg = dist_api.unflatten(qt, 1, (hkv, h // hkv))
     logits = torch.einsum("bkgqd,bkKd->bkgqK", qg.float(),
-                          kt.float()) * (d ** -0.5)
+                          kt.float()) * scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     if causal or window is not None:
@@ -214,7 +229,7 @@ def _scores_softmax_pv(qt, kt, vt, q_offset: int, *, causal: bool,
 
 def _mha_chunked(qt, kt, vt, q_offset: int, *, causal: bool,
                  window: Optional[int], softcap: Optional[float],
-                 q_chunk: int, combine=None) -> torch.Tensor:
+                 scale: float, q_chunk: int, combine=None) -> torch.Tensor:
     """Sarathi-style chunked prefill: one query chunk at a time, so the
     score tensor is [B,H,qc,Skv] instead of [B,H,Sq,Skv] (JAX's
     ``lax.scan`` over chunks). qt [B,H,Sq,D] → [B,H,Sq,D] in qt's dtype;
@@ -222,7 +237,7 @@ def _mha_chunked(qt, kt, vt, q_offset: int, *, causal: bool,
     sq = qt.shape[2]
     outs = [_scores_softmax_pv(qt[:, :, c:c + q_chunk], kt, vt, c + q_offset,
                                causal=causal, window=window, softcap=softcap,
-                               combine=combine)
+                               scale=scale, combine=combine)
             for c in range(0, sq, q_chunk)]
     return torch.cat(outs, dim=2).to(qt.dtype)
 
@@ -247,7 +262,8 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions, *,
         k, v = cross_kv
         causal, window = False, None
     out = _mha(q, k, v, causal=causal, window=window,
-               softcap=cfg.attn_logit_softcap, impl=impl)
+               softcap=cfg.attn_logit_softcap, impl=impl,
+               scale=softmax_scale(cfg))
     return dist_api.stream(dist_api.flatten(out, 2, 3) @ p["wo"])
 
 
@@ -317,7 +333,7 @@ def decode_attention_into(p, cfg: ModelConfig, x: torch.Tensor, k_cache,
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     qg = dist_api.unflatten(q, 2, (hkv, h // hkv))[:, 0]          # [B,Hkv,G,D]
     out = dist_api.local_decode_attention(
-        functools.partial(_decode_attend, scale=hd ** -0.5,
+        functools.partial(_decode_attend, scale=softmax_scale(cfg),
                           softcap=cfg.attn_logit_softcap),
         qg, k_cache, v_cache, masked).to(x.dtype)
     return dist_api.stream(out.reshape(b, 1, h * hd) @ p["wo"])

@@ -7,13 +7,17 @@ groups of at most ``group_size``, each expert takes at most C = ⌈k·g/E·cf⌉
 tokens of a group (earlier tokens first, then lower choices), and a
 dropped token passes through the residual. The auxiliary load-balancing
 loss is Switch's (eq. 4). The experts' weights are stacked ``[E, d, f]``.
+Where ``cfg.moe.shared_d_ff`` is set, a shared expert (an MLP of that
+width, ``shared``) takes every token besides, and its output is added to
+the routed experts'.
 
 While recording (:mod:`repro_torch.trace`) a layer's routing, dispatch,
-experts and combine run in ``moe.*`` spans, and it counts ``moe.slots``
-(the capacity slots it allocates, E·C a group) and ``moe.assigned`` (its
-top-k assignments) on the host, and ``moe.filled`` (the assignments
-kept) on the device, one add a layer; ``trace.counters()`` gives
-``moe.dropped`` (those past capacity) as their difference.
+experts, combine and shared expert run in ``moe.*`` spans, and it counts
+``moe.slots`` (the capacity slots it allocates, E·C a group) and
+``moe.assigned`` (its top-k assignments) on the host, and ``moe.filled``
+(the assignments kept) on the device, one add a layer;
+``trace.counters()`` gives ``moe.dropped`` (those past capacity) as their
+difference.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import torch.nn.functional as F
 
 from .. import trace
 from ..configs.base import ModelConfig
-from .layers import normal
+from .layers import apply_mlp, init_mlp, normal
 
 __all__ = ["init_moe", "route", "apply_moe"]
 
@@ -33,16 +37,21 @@ trace.difference("moe.dropped", "moe.assigned", "moe.filled")
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
-    """The f32 router ``[d, E]`` and the experts' ``w_gate``, ``w_up``
-    ``[E, d, f]`` and ``w_out`` ``[E, f, d]``."""
+    """The f32 router ``[d, E]``, the experts' ``w_gate``, ``w_up``
+    ``[E, d, f]`` and ``w_out`` ``[E, f, d]``, and with a shared expert its
+    MLP, ``shared``."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-    return {
+    p = {
         "router": normal(gen, (d, e), s_in, torch.float32, device),
         "w_gate": normal(gen, (e, d, f), s_in, dtype, device),
         "w_up": normal(gen, (e, d, f), s_in, dtype, device),
         "w_out": normal(gen, (e, f, d), s_out, dtype, device),
     }
+    if cfg.moe.shared_d_ff:
+        p["shared"] = init_mlp(gen, d, cfg.moe.shared_d_ff, cfg.mlp, dtype,
+                               device)
+    return p
 
 
 def route(p, cfg: ModelConfig, x: torch.Tensor
@@ -61,7 +70,7 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
     """x: [B,S,D] → (y [B,S,D], aux loss f32 0-d). S must be a multiple of
     the routing group length ``min(group_size, S)``."""
     from ..dist import api as dist_api
-    x = dist_api.stream(x)
+    x = x_in = dist_api.stream(x)
     b_in, s_in, d = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     g = min(cfg.moe.group_size, s_in)
@@ -122,4 +131,8 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
         y = torch.einsum("bsec,becd->bsd", comb.to(cd), expert_out)
 
     # pinned per routing group: the combine's layout may split a group
-    return dist_api.stream(y).reshape(b_in, s_in, d), aux.float()
+    y = dist_api.stream(y).reshape(b_in, s_in, d)
+    if "shared" in p:
+        with trace.span("moe.shared"):
+            y = y + apply_mlp(p["shared"], x_in, cfg.mlp)
+    return y, aux.float()

@@ -7,6 +7,14 @@ runs the quadratic forms for all chunks at once and the carry as a
 ``lax.scan``; here one Python loop over the chunks does both, so a
 chunk's [B, Q, Q, H] decay matrix is the largest intermediate. Decode is
 the pure recurrence against a (state, conv) cache. Attention-free.
+
+While recording (:mod:`repro_torch.trace`) a full-sequence mixer runs in
+spans ``ssm.in`` (the input projection), ``ssm.conv`` (the causal conv),
+``ssm.scan`` (the chunk loop, the skip and the gate) and ``ssm.out`` (the
+gated norm and ``out_proj``), and counts the chunks it runs, ``ssm.chunks``
+(one a chunk and sequence batch), on the host, and on a CUDA device the
+card's ns over each ``ssm.scan``, ``ssm.scan_device_ns``
+(:func:`trace.device_time`).
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..configs.base import ModelConfig
 from .layers import apply_norm, init_norm, normal
 
@@ -85,17 +94,19 @@ def apply_ssm(params, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
 
     # the split points of z | xBC | dt do not fall on the projection's
     # shards: it is gathered once, and each device mixes its own heads
-    zxbcdt = dist_api.unshard(dist_api.split_product(u, params["in_proj"]),
-                              -1)
+    with trace.span("ssm.in"):
+        zxbcdt = dist_api.unshard(
+            dist_api.split_product(u, params["in_proj"]), -1)
     y = dist_api.local_heads(
         functools.partial(_mix, cfg=cfg, q=q), h, (zxbcdt,),
         [params[k] for k in ("conv_w", "conv_b", "dt_bias", "a_log",
                              "d_skip")])                          # [B,S,H,P]
-    # split evenly again for the row-parallel out_proj (heads that the
-    # model axis does not divide were gathered to flatten them)
-    y = dist_api.split_model(dist_api.flatten(y, 2, 3), -1)
-    y = apply_norm(params["norm"], y, "rmsnorm")
-    return dist_api.stream(y @ params["out_proj"])
+    with trace.span("ssm.out"):
+        # split evenly again for the row-parallel out_proj (heads that the
+        # model axis does not divide were gathered to flatten them)
+        y = dist_api.split_model(dist_api.flatten(y, 2, 3), -1)
+        y = apply_norm(params["norm"], y, "rmsnorm", cfg.norm_eps)
+        return dist_api.stream(y @ params["out_proj"])
 
 
 def _mix(part: slice, zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, *,
@@ -103,12 +114,25 @@ def _mix(part: slice, zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, *,
     """The SSD mixer of the heads ``part`` from the input projection
     ``zxbcdt`` [B,S,·]: the causal conv, the chunked recurrence, the skip
     and the gate → [B,S,heads,P], before the gated norm."""
-    d, di, n, p, h, g, conv_dim = _dims(cfg)
-    b, s, _ = zxbcdt.shape
-    heads, cols = part, slice(part.start * p, part.stop * p)
-    hl = part.stop - part.start
+    p = cfg.ssm.head_dim
+    cols = slice(part.start * p, part.stop * p)
     z, xbc, dt = _split(cfg, zxbcdt)
-    xbc = _causal_conv(xbc, conv_w, conv_b)
+    with trace.span("ssm.conv"):
+        xbc = _causal_conv(xbc, conv_w, conv_b)
+    with trace.span("ssm.scan"), \
+            trace.device_time("ssm.scan_device_ns", xbc.device):
+        return _scan(z, xbc, dt, dt_bias, a_log, d_skip, part, cols,
+                     cfg=cfg, q=q)
+
+
+def _scan(z, xbc, dt, dt_bias, a_log, d_skip, heads: slice, cols: slice, *,
+          cfg: ModelConfig, q: int) -> torch.Tensor:
+    """The heads ``heads`` (x channels ``cols``) of the conv's output
+    ``xbc``: the chunked recurrence, the skip and the gate by ``z`` →
+    [B,S,heads,P] in ``z``'s dtype."""
+    d, di, n, p, h, g, conv_dim = _dims(cfg)
+    b, s = xbc.shape[:2]
+    hl = heads.stop - heads.start
     x = xbc[..., :di][..., cols].reshape(b, s, hl, p)
     # groups broadcast over heads
     bmat = xbc[..., di:di + g * n].reshape(b, s, g, n).repeat_interleave(
@@ -121,7 +145,7 @@ def _mix(part: slice, zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, *,
     xw = x.float() * dt[..., None]                                # [B,S,H,P]
     y = _ssd_chunks(cmat, bmat, xw, delta, q=q)                   # [B,S,H,P]
     y = y + x.float() * d_skip[heads][None, None, :, None]
-    return y.to(zxbcdt.dtype) * F.silu(z[..., cols]).reshape(b, s, hl, p)
+    return y.to(z.dtype) * F.silu(z[..., cols]).reshape(b, s, hl, p)
 
 
 def _ssd_chunks(cmat, bmat, xw, delta, *, q: int) -> torch.Tensor:
@@ -133,6 +157,8 @@ def _ssd_chunks(cmat, bmat, xw, delta, *, q: int) -> torch.Tensor:
     p = xw.shape[-1]
     t = torch.arange(q, device=xw.device)
     state = torch.zeros((b, h, n, p), dtype=torch.float32, device=xw.device)
+    if trace.enabled():
+        trace.count("ssm.chunks", s // q)
     ys = []
     for c0 in range(0, s, q):
         cm, bm = cmat[:, c0:c0 + q], bmat[:, c0:c0 + q]
@@ -197,7 +223,7 @@ def decode_ssm(params, cfg: ModelConfig, u: torch.Tensor, state, conv
         [params[k] for k in ("conv_w", "conv_b", "dt_bias", "a_log",
                              "d_skip")], dims=(1, 1), split=(state,))
     y = dist_api.split_model(dist_api.flatten(y, 1, 2), -1)
-    y = apply_norm(params["norm"], y, "rmsnorm")
+    y = apply_norm(params["norm"], y, "rmsnorm", cfg.norm_eps)
     return dist_api.stream((y @ params["out_proj"])[:, None, :]), state, \
         new_conv
 

@@ -5,8 +5,11 @@ hybrid and vlm families (encdec is ``models/encdec.py``).
 
 A model is a list of *groups*, each a repeating *unit* of block kinds
 (``("attn",)`` for dense, moe and vlm, ``("ssm",)`` for mamba2,
-``("rec", "rec", "attn")`` for RecurrentGemma's 1:2 hybrid pattern, with
-a shorter remainder group where the layers do not fill whole units). The
+``("rec", "rec", "attn")`` for RecurrentGemma's 1:2 hybrid pattern,
+granite-4.0-h's nine ``"ssm"`` and one global ``"attn"``, with a shorter
+remainder group where the layers do not fill whole units). Every block
+but the ssm family's follows its mixer with ``norm2`` and an FFN: the
+experts wherever the config has them, else the MLP. The
 JAX package stacks each group's parameters along a leading ``count`` axis
 and runs the group as one ``jax.lax.scan``. PyTorch runs eagerly, so here
 every layer is a module of its own (``params["layers"]``, in execution
@@ -142,27 +145,34 @@ def unit_starts(cfg: ModelConfig) -> List[bool]:
             for _ in range(count) for i in range(len(unit))]
 
 
+def _init_ffn(gen: torch.Generator, cfg: ModelConfig, dtype, device
+              ) -> dict:
+    """A block's FFN after ``norm2``: the experts wherever the config has
+    them, else the MLP."""
+    if cfg.moe.n_experts:
+        return {"moe": moe_mod.init_moe(gen, cfg, dtype, device)}
+    return {"mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype,
+                            device)}
+
+
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
                 device) -> dict:
+    """``norm1`` and the mixer of ``kind``, then ``norm2`` and the FFN in
+    every block but the ssm family's, whose blocks are the mixer alone."""
     d = cfg.d_model
     if kind == "attn":
-        p = {"norm1": init_norm(d, cfg.norm, dtype, device),
-             "attn": attn_mod.init_attention(gen, cfg, dtype, device),
-             "norm2": init_norm(d, cfg.norm, dtype, device)}
-        if cfg.family == "moe":
-            p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
-        else:
-            p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp, dtype, device)
-        return p
-    if kind == "ssm":
-        return {"norm1": init_norm(d, cfg.norm, dtype, device),
-                "ssm": ssm_mod.init_ssm(gen, cfg, dtype, device)}
-    if kind == "rec":
-        return {"norm1": init_norm(d, cfg.norm, dtype, device),
-                "rec": rglru_mod.init_rglru(gen, cfg, dtype, device),
-                "norm2": init_norm(d, cfg.norm, dtype, device),
-                "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp, dtype, device)}
-    raise ValueError(kind)
+        mixer = {"attn": attn_mod.init_attention(gen, cfg, dtype, device)}
+    elif kind == "ssm":
+        mixer = {"ssm": ssm_mod.init_ssm(gen, cfg, dtype, device)}
+    elif kind == "rec":
+        mixer = {"rec": rglru_mod.init_rglru(gen, cfg, dtype, device)}
+    else:
+        raise ValueError(kind)
+    p = {"norm1": init_norm(d, cfg.norm, dtype, device), **mixer}
+    if cfg.family != "ssm":
+        p["norm2"] = init_norm(d, cfg.norm, dtype, device)
+        p.update(_init_ffn(gen, cfg, dtype, device))
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -184,6 +194,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     return ParamTree(params)
 
 
+def _residual(cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    """``x + m·y``, m the residual multiplier; one add either way."""
+    m = cfg.residual_multiplier
+    return x + y if m == 1.0 else torch.add(x, y, alpha=m)
+
+
+def _ffn(block, cfg: ModelConfig, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's experts or MLP over ``h``: (y, the aux loss or None)."""
+    if "moe" in block:
+        return moe_mod.apply_moe(block["moe"], cfg, h)
+    return apply_mlp(block["mlp"], h, cfg.mlp), None
+
+
 def _apply_block(block, cfg: ModelConfig, kind: str, x: torch.Tensor,
                  positions, attn_impl: str
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -192,39 +217,40 @@ def _apply_block(block, cfg: ModelConfig, kind: str, x: torch.Tensor,
     a recompute gathers them again and the step never holds them all."""
     from ..dist import api as dist_api
     block = dist_api.gather_weights(block)
-    h = apply_norm(block["norm1"], x, cfg.norm)
-    if kind == "ssm":
-        return x + ssm_mod.apply_ssm(block["ssm"], cfg, h), None
-    aux = None
+    h = apply_norm(block["norm1"], x, cfg.norm, cfg.norm_eps)
     if kind == "attn":
         window = cfg.hybrid.window if cfg.family == "hybrid" else None
-        x = x + attn_mod.attention(block["attn"], cfg, h, positions,
-                                   causal=True, window=window, impl=attn_impl)
-        h = apply_norm(block["norm2"], x, cfg.norm)
-        if "moe" in block:
-            y, aux = moe_mod.apply_moe(block["moe"], cfg, h)
-        else:
-            y = apply_mlp(block["mlp"], h, cfg.mlp)
-        return x + y, aux
-    if kind == "rec":
-        x = x + rglru_mod.apply_rglru(block["rec"], cfg, h)
-        h = apply_norm(block["norm2"], x, cfg.norm)
-        return x + apply_mlp(block["mlp"], h, cfg.mlp), None
-    raise ValueError(kind)
+        y = attn_mod.attention(block["attn"], cfg, h, positions, causal=True,
+                               window=window, impl=attn_impl)
+    elif kind == "ssm":
+        y = ssm_mod.apply_ssm(block["ssm"], cfg, h)
+    elif kind == "rec":
+        y = rglru_mod.apply_rglru(block["rec"], cfg, h)
+    else:
+        raise ValueError(kind)
+    x = _residual(cfg, x, y)
+    if "norm2" not in block:
+        return x, None
+    y, aux = _ffn(block, cfg, apply_norm(block["norm2"], x, cfg.norm,
+                                         cfg.norm_eps))
+    return _residual(cfg, x, y), aux
 
 
 def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
                  vision_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-    """Token embeddings [B,S,D] in the compute dtype; ``vision_embeds``
-    [B,P,D] (the vlm family's stub frontend) replace the first P."""
+    """Token embeddings [B,S,D] in the compute dtype, times the embedding
+    multiplier; ``vision_embeds`` [B,P,D] (the vlm family's stub frontend)
+    replace the first P."""
     from ..dist import api as dist_api
     x = dist_api.stream(F.embedding(tokens,
                                   dist_api.gather_weights(params["embed"])))
     if vision_embeds is not None:
         n = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, n:, :]], dim=1)
-    return x.to(cfg.dtype())
+    x = x.to(cfg.dtype())
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
 
 
 def default_positions(cfg: ModelConfig, start: torch.Tensor, b: int, s: int
@@ -281,11 +307,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The final norm and the LM head (the tied embedding's transpose
-    without a ``head``) over the stream ``x``."""
+    without a ``head``) over the stream ``x``; the logit divisor divides
+    the normed rows before the head, which gives the same product."""
     from ..dist import api as dist_api
     top = dist_api.gather_weights(
         {k: params[k] for k in ("embed", "head", "final_norm") if k in params})
-    x = apply_norm(top["final_norm"], x, cfg.norm)
+    x = apply_norm(top["final_norm"], x, cfg.norm, cfg.norm_eps)
+    if cfg.logits_scaling != 1.0:
+        x = x / cfg.logits_scaling
     head = top["embed"].T if cfg.tie_embeddings else top["head"]
     return x @ head.to(x.dtype)
 
@@ -331,15 +360,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device
                ) -> Dict[str, Any]:
     """A zero cache for ``batch`` sequences of up to ``max_len`` tokens on
     ``device`` (``"meta"`` for shapes only). The hybrid family's local
-    attention keeps a ring of ``min(max_len, window)`` slots."""
+    attention keeps a ring of ``min(max_len, window)`` slots; its global
+    attention (no window) keeps ``max_len``."""
     dtype = cfg.dtype()
     groups = []
     for unit, count in layer_groups(cfg):
         unit_caches = []
         for kind in unit:
             if kind == "attn":
-                slots = max_len if cfg.family != "hybrid" \
-                    else min(max_len, cfg.hybrid.window)
+                window = cfg.hybrid.window if cfg.family == "hybrid" \
+                    else None
+                slots = max_len if window is None else min(max_len, window)
                 unit_caches.append(attn_mod.init_kv_cache(
                     cfg, batch, slots, dtype, count, device))
             elif kind == "ssm":
@@ -361,25 +392,21 @@ def _decode_block(block, cfg: ModelConfig, kind: str, x: torch.Tensor,
     the step's (write index, validity mask, RoPE tables)."""
     from ..dist import api as dist_api
     block = dist_api.gather_weights(block)
-    h = apply_norm(block["norm1"], x, cfg.norm)
+    h = apply_norm(block["norm1"], x, cfg.norm, cfg.norm_eps)
     if kind == "attn":
-        x = x + attn_mod.decode_attention_into(
+        y = attn_mod.decode_attention_into(
             block["attn"], cfg, h, cache["k"][ci], cache["v"][ci], *attn)
-        h = apply_norm(block["norm2"], x, cfg.norm)
-        if "moe" in block:
-            y, _ = moe_mod.apply_moe(block["moe"], cfg, h)
-        else:
-            y = apply_mlp(block["mlp"], h, cfg.mlp)
-        return x + y
-    step = ssm_mod.decode_ssm if kind == "ssm" else rglru_mod.decode_rglru
-    y, state, conv = step(block[kind], cfg, h, cache["state"][ci],
-                          cache["conv"][ci])
-    cache["state"][ci].copy_(state)
-    cache["conv"][ci].copy_(conv)
-    x = x + y
-    if kind == "rec":
-        h = apply_norm(block["norm2"], x, cfg.norm)
-        x = x + apply_mlp(block["mlp"], h, cfg.mlp)
+    else:
+        step = ssm_mod.decode_ssm if kind == "ssm" else rglru_mod.decode_rglru
+        y, state, conv = step(block[kind], cfg, h, cache["state"][ci],
+                              cache["conv"][ci])
+        cache["state"][ci].copy_(state)
+        cache["conv"][ci].copy_(conv)
+    x = _residual(cfg, x, y)
+    if "norm2" in block:
+        y, _ = _ffn(block, cfg, apply_norm(block["norm2"], x, cfg.norm,
+                                           cfg.norm_eps))
+        x = _residual(cfg, x, y)
     return x
 
 

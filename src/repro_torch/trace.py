@@ -18,6 +18,9 @@ module answers both from inside the program.
   ``RefRegistry``'s host traffic, a graph's dispatch kinds) as their
   growth since the record began, and works out the counters that
   :func:`difference` names.
+* :func:`device_time` adds a block's time on its device to a counter: on
+  the card from two CUDA events on the current stream, which
+  :func:`counters` reads.
 * Recording is on inside :func:`recording`, or while a ``torch.profiler``
   session runs in the process. Off, :func:`span` returns one shared no-op
   object (:data:`NOOP`) after one flag check; a call site that builds
@@ -50,7 +53,8 @@ import torch.autograd.profiler as _profiler
 
 __all__ = ["MAX_SPANS", "NOOP", "Span", "enabled", "span", "request",
            "current", "here", "span_within", "stamp", "span_from", "waited",
-           "count", "reads", "difference", "recording", "reset", "spans",
+           "count", "device_time", "reads", "difference", "recording",
+           "reset", "spans",
            "dropped", "counters", "summary", "profiled_gaps", "idle_by_span",
            "label_gaps"]
 
@@ -259,6 +263,8 @@ class Record:
         self.spans: deque = deque(maxlen=max_spans)
         self.dropped = 0
         self.counts: Dict[str, Any] = {}
+        #: (counter, start event, end event) of each :func:`device_time`
+        self.timed: List[Tuple[str, Any, Any]] = []
         self._lock = threading.Lock()
         self.base: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary(
             _owner_counts())
@@ -286,6 +292,49 @@ def count(name: str, n) -> None:
     ``name``, while recording."""
     if enabled():
         _record.count(name, n)
+
+
+class _DeviceTime:
+    """The block's time on its device; see :func:`device_time`."""
+
+    __slots__ = ("name", "cuda", "start")
+
+    def __init__(self, name: str, cuda: bool):
+        self.name, self.cuda = name, cuda
+
+    def __enter__(self):
+        if self.cuda:
+            import torch
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if not self.cuda:
+            _record.count(self.name, time.perf_counter_ns() - self.start)
+            return False
+        import torch
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        rec = _record
+        with rec._lock:
+            rec.timed.append((self.name, self.start, end))
+        return False
+
+
+def device_time(name: str, device):
+    """Add to the counter ``name`` the ns that the block's work takes on
+    ``device`` (a ``torch.device``), while recording. On a CUDA device that is the distance of
+    two events on the current stream, one recorded on entry and one on
+    exit (the work launched in the block and any gaps in it, wherever the
+    host waited), with no sync: :func:`counters` reads them. On any other
+    device, whose operations are done when they return, it is the host's
+    time over the block. Off, :data:`NOOP`."""
+    if not (_on > 0 or _profiler._is_profiler_enabled):
+        return NOOP
+    return _DeviceTime(name, device.type == "cuda")
 
 
 def reads(owner: Any, read: Callable[[Any], Dict[str, int]]) -> None:
@@ -339,14 +388,19 @@ def dropped() -> int:
 
 
 def counters() -> Dict[str, int]:
-    """The newest record's counters (a device counter is read here, once),
+    """The newest record's counters (a device counter and the events of
+    :func:`device_time` are read here, once),
     those that :func:`difference` names, and what the counters registered
     with :func:`reads` grew by since the record began (an owner made
     later counts from its start)."""
     rec = _record
     with rec._lock:
         counts = list(rec.counts.items())
+        timed = list(rec.timed)
     out = {k: int(v) for k, v in counts}
+    for name, start, end in timed:
+        end.synchronize()
+        out[name] = out.get(name, 0) + int(start.elapsed_time(end) * 1e6)
     for name, (total, part) in _differences.items():
         if total in out:
             out[name] = out[total] - out.get(part, 0)

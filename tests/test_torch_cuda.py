@@ -459,6 +459,46 @@ def test_flash_attention_kernel_within_tolerance(cuda_device, b, h, hkv, sq,
     assert _launches()["flash_attention"] == before + 1
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_takes_the_softmax_scale(cuda_device, dtype, tol):
+    """granite-4.0-h-small's attention: 32 heads over 8 KV of 128, causal,
+    logits scaled by 1/128 (its ``attention_multiplier``), not 1/sqrt(128),
+    through ``ops.flash_attention`` as the model calls it, against SDPA
+    with the same scale."""
+    g = torch.Generator(device=cuda_device).manual_seed(128)
+    q, k, v = (torch.randn(1, h, 1024, 128, generator=g, device=cuda_device
+                           ).to(dtype) * 4 for h in (32, 8, 8))
+    before = _launches()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True, scale=1 / 128)
+    want = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=1 / 128, enable_gqa=True)
+    plain_scale = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _launches()["flash_attention"] == before + 2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not torch.allclose(got.float(), plain_scale.float(), rtol=tol,
+                              atol=tol)
+
+
+def test_device_time_reads_the_cards_time_over_the_block(cuda_device):
+    """``trace.device_time`` on the card: two events around the block, read
+    once by ``counters``, the card's time whatever the host did meanwhile."""
+    from repro_torch import trace
+    dev = torch.device(cuda_device)
+    torch.cuda.synchronize()
+    trace.reset()
+    with trace.recording():
+        with trace.device_time("t_ns", dev):
+            torch.cuda._sleep(20_000_000)
+        with trace.device_time("u_ns", dev):
+            pass
+        torch.cuda.synchronize()
+        got = trace.counters()
+    assert 1e6 < got["t_ns"] < 1e9
+    assert 0 <= got["u_ns"] < got["t_ns"] / 100
+
+
 def test_flash_attention_reads_strided_projections(cuda_device):
     """The model hands the kernel transposed [B,S,H,D] views."""
     g = torch.Generator(device=cuda_device).manual_seed(5)

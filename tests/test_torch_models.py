@@ -30,8 +30,8 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import pallas_flash_attention
 from repro.models import Model as JModel
 from repro.models import layers as jlayers
-from repro_torch.configs import (ARCHS, SHAPES, ModelConfig, get_config,
-                                 get_smoke_config, list_archs,
+from repro_torch.configs import (ARCHS, PORT_ONLY, SHAPES, ModelConfig,
+                                 get_config, get_smoke_config, list_archs,
                                  shape_applicable)
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import KERNELS, ops
@@ -174,6 +174,30 @@ def test_flash_attention_rejects_bad_inputs():
 # ----------------------------------------------------------------------------
 # configs and layers
 # ----------------------------------------------------------------------------
+#: the port's own fields (``sub.field`` in a sub-config), each at the value
+#: under which a config computes as the JAX package does
+PORT_ONLY_NEUTRAL = {"rope": True, "attention_multiplier": None,
+                     "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
+                     "logits_scaling": 1.0, "norm_eps": 1e-6,
+                     "moe.shared_d_ff": 0}
+
+
+def _split_fields(ours: dict, theirs: dict, prefix: str = ""):
+    """(``ours`` cut to the keys ``theirs`` has, sub-dicts alike; the
+    fields only ``ours`` has, as ``{"sub.field": value}``)."""
+    same, extra = {}, {}
+    for key, value in ours.items():
+        if key not in theirs:
+            extra[prefix + key] = value
+        elif isinstance(value, dict):
+            same[key], more = _split_fields(value, theirs[key],
+                                            f"{prefix}{key}.")
+            extra.update(more)
+        else:
+            same[key] = value
+    return same, extra
+
+
 def test_configs_are_copies_of_the_jax_configs():
     assert ARCHS == tuple(jconfigs.list_archs())
     assert list_archs() == jconfigs.list_archs() and SHAPES == jconfigs.SHAPES
@@ -181,7 +205,12 @@ def test_configs_are_copies_of_the_jax_configs():
         for ours, theirs in ((get_config(arch), jget_config(arch)),
                              (get_smoke_config(arch), jget_smoke(arch))):
             assert isinstance(ours, ModelConfig)
-            assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+            theirs_d = dataclasses.asdict(theirs)
+            same, extra = _split_fields(dataclasses.asdict(ours), theirs_d)
+            # every field of JAX's ModelConfig, sub-configs too, equal
+            assert same == theirs_d
+            # and every field of the port's own at its neutral default
+            assert extra == PORT_ONLY_NEUTRAL, arch
             assert ours.param_count() == theirs.param_count()
             for shape in SHAPES:
                 assert shape_applicable(ours, shape) == \
@@ -190,6 +219,23 @@ def test_configs_are_copies_of_the_jax_configs():
     assert get_smoke_config(ARCH).dtype() == torch.float32
     with pytest.raises(KeyError, match="the port runs"):
         get_config("foo")
+
+
+def test_port_only_archs_resolve_outside_the_jax_list():
+    """granite-4.0-h-small resolves in the port, while ``ARCHS`` and
+    ``list_archs()`` stay the JAX package's list."""
+    assert PORT_ONLY == ("granite-4.0-h-small",)
+    assert ARCHS == tuple(jconfigs.list_archs())
+    assert list_archs() == jconfigs.list_archs()
+    for arch in PORT_ONLY:
+        assert arch not in ARCHS and arch not in jconfigs.list_archs()
+        for cfg in (get_config(arch), get_smoke_config(arch)):
+            assert isinstance(cfg, ModelConfig)
+            assert cfg.name.startswith(arch)
+            _, extra = _split_fields(dataclasses.asdict(cfg),
+                                     dataclasses.asdict(jget_config(ARCH)))
+            assert extra.keys() == PORT_ONLY_NEUTRAL.keys()
+            assert extra != PORT_ONLY_NEUTRAL
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])

@@ -387,6 +387,20 @@ def test_summary_takes_self_time_from_the_children():
     assert s["kid"]["p99_s"] == pytest.approx(0.003)
 
 
+def test_device_time_counts_the_blocks_time_on_the_cpu_while_recording():
+    cpu = torch.device("cpu")
+    trace.reset()
+    assert trace.device_time("t_ns", cpu) is trace.NOOP
+    with trace.recording():
+        for _ in range(2):
+            with trace.span("timed"), trace.device_time("t_ns", cpu):
+                torch.ones(256, 256) @ torch.ones(256, 256)
+        spans = trace.spans()
+        got = trace.counters()["t_ns"]
+    held = sum(s.end - s.start for s in spans if s.name == "timed")
+    assert 0 < got <= held
+
+
 def test_counters_read_their_owners_and_device_adds(system):
     g = Pipeline(system, mode="staged").stages(
         [lambda x: x + 1, lambda x: x * 2]).build()
